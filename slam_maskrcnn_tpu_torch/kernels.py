@@ -1,0 +1,143 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` into
+``build/kernels/<name>-<hash>.so`` at the repository root (a plain C
+interface, loaded with ``ctypes``). All sources are compiled in parallel
+on first use; a library whose source and flags are unchanged is reused.
+Nothing here runs when the package is imported: the CPU tests import
+every module on a machine without ``nvcc``.
+
+Flags: ``sm_90a`` (Hopper), ``-O3`` and ``--fmad=false`` — no multiply-add
+contraction, so each kernel rounds exactly like its plain PyTorch version
+(see csrc/fuse.cu).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+SOURCES = ("fuse", "nms", "roi_align")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argument types of each library's entry point (pointers and the stream
+# as c_void_p: a bare Python int would be cut to 32 bits)
+_SIGNATURES = {
+    "fuse": ("fuse_frame_cuda", [_P, _P, _P, _P, _I, _I, _I, _I,
+                                 _P, _P, _P, _I, _I, _P, _P]),
+    "nms": ("nms_cuda", [_P, _P, _I, _I, _I, _F, _F, _P, _P, _P]),
+    "roi_align": ("roi_align_cuda", [_I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _F, _P, _P]),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "nvcc")
+        if os.path.exists(cand):
+            path = cand
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "the machine with the GPU")
+    return path
+
+
+def _target(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+
+
+def build_all(verbose: bool = False) -> dict[str, str]:
+    """Compile every source that has no up-to-date library, one nvcc per
+    source, all started together. Returns {name: library path}."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    targets = {n: _target(n) for n in SOURCES}
+    procs = {}
+    for name, out in targets.items():
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, name + ".cu")]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu ---\n{log}")
+            continue
+        if verbose and log.strip():
+            print(f"[nvcc {name}.cu]\n{log.strip()}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees a part
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return targets
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, building all sources first if
+    needed."""
+    with _lock:
+        if name not in _libs:
+            paths = build_all()
+            for n, path in paths.items():
+                dll = ctypes.CDLL(path)
+                fn_name, argtypes = _SIGNATURES[n]
+                fn = getattr(dll, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _libs[n] = dll
+        return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+class LaunchCounter:
+    """Launch counts of every kernel wrapper. A wrapper adds one where it
+    launches its kernel and nowhere else."""
+
+    def __init__(self):
+        self.counts = {n: 0 for n in SOURCES}
+
+    def add(self, name: str) -> None:
+        self.counts[name] += 1
+
+    def reset(self) -> None:
+        for n in self.counts:
+            self.counts[n] = 0
+
+
+launches = LaunchCounter()
