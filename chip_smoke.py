@@ -3,21 +3,31 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels from csrc/ (nvcc, sm_90a) and prints the build
-   time.
-2. Main path: the north-star step (NorthStar.step: detect -> label ->
-   depth probe -> associate -> fuse) at full width: ResNet-101 FPN Mask
-   R-CNN with 81 classes and seeded random weights, rect molding to
-   768x1024, a 512^3 volume with a K=32 u16 histogram, 480x640 RGB-D
-   frames. Prints per-stage milliseconds (CUDA events), frames per second,
-   peak memory, and each kernel's launches, which must be 2 (NMS), 2
-   (ROIAlign) and 1 (fuse) per frame.
-3. Holds each kernel against its plain PyTorch version on the card at the
+1. Builds the CUDA kernels from csrc/ (nvcc, sm_90a, one process per
+   source) and prints the build time.
+2. Main path, per-frame form: the north-star step (NorthStar.step: detect
+   -> label -> depth probe -> associate -> fuse, render mode "none") at
+   full width: ResNet-101 FPN Mask R-CNN with 81 classes and seeded random
+   weights, rect molding to 768x1024, a 512^3 volume with a K=32 u16
+   histogram, 480x640 RGB-D frames. Prints per-stage milliseconds (CUDA
+   events), frames per second, peak memory, and each kernel's launches,
+   which must be 2 (NMS), 2 (ROIAlign) and 1 (fuse) per frame.
+3. Main path, chunk form: NorthStar.run_chunk_paired over 16 frames with
+   the in-loop render (mode "instance", candidates refreshed every 4
+   frames) on the same model and volume: one batched detect, 8 launches of
+   the paired fuse kernel, 16 renders. Prints the same metrics with the
+   candidate refresh and the render as stages, checks the launch counts,
+   the state, the misses and a color-mode view of the final volume, and
+   holds run_chunk_paired against run_chunk_batched at 64^3.
+4. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (inputs captured from the main path, plus seeded
-   inputs where the main path's are degenerate) and times both.
-4. Stage 2 with the synthetic ground-truth masks at 512^3 (association
-   with several ids), and the same at 64^3 on the CPU (plain versions) vs
-   the GPU (kernels), which must agree bit for bit.
+   inputs where the main path's are degenerate) and times both; the paired
+   fuse kernel also against two launches of the single one, the sorted NMS
+   kernel also against the argmax kernel's selection.
+5. Stage 2 with the synthetic ground-truth masks at 512^3 (association
+   with several ids, then an instance render that must show both
+   spheres), and the same at 64^3 on the CPU (plain versions) vs the GPU
+   (kernels): state, masks, renders and probe must agree bit for bit.
 
 Prints the card's name and power limit, one {"kernels": [...]} line, and
 as the last line {"ok": true, "device": {...}}. Any failed check raises,
@@ -34,7 +44,8 @@ import numpy as np
 
 H, W = 480, 640
 VOL = (512, 512, 512)
-N_FRAMES = 8
+N_FRAMES = 8                    # per-frame form
+N_CHUNK = 16                    # chunk form
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 
@@ -96,6 +107,28 @@ class Recorder:
         nms_mod._nms_cuda, roi_mod._roi_align_cuda = nms, roi
 
 
+class StageClock:
+    """CUDA events at the stage marks of a step or a chunk; ``ms()`` sums
+    the time between consecutive marks under the later mark's name."""
+
+    def __init__(self):
+        import torch
+        self._event = lambda: torch.cuda.Event(enable_timing=True)
+        self.events = [("start", self._event())]
+        self.events[0][1].record()
+
+    def mark(self, name):
+        ev = self._event()
+        ev.record()
+        self.events.append((name, ev))
+
+    def ms(self):
+        out = {}
+        for (_, a), (name, b) in zip(self.events, self.events[1:]):
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
 def main_path(dev):
     """Phase 2: the full-width north-star step. Returns (state, frames,
     stage ms, fps, peak GiB, launches, config objects)."""
@@ -133,14 +166,15 @@ def main_path(dev):
                torch.from_numpy(fr["color"]).to(dev),
                (fr["extrinsic"] @ E0i).astype(np.float32))
               for fr in frames[1:]]
-    ns = NorthStar(model, K4, cfg, H, W)
+    ns = NorthStar(model, K4, cfg, H, W, render_mode="none")
+    dist = float(frames[0]["mean_depth"])
     log(f"[main] setup {time.time() - t0:.1f} s (model "
         f"{sum(p.numel() for p in model.module.parameters()) / 1e6:.1f} M "
         f"params, volume {VOL})")
 
     rec = Recorder()
     # warm-up frame (first fuse: no association), outside the counted run
-    state, mask_g, _ = ns.step(state, *staged[0])
+    state, _, mask_g, _ = ns.step(state, *staged[0], 0.0, dist)
     torch.cuda.synchronize()
 
     stages = ("detect", "label", "associate", "fuse")
@@ -150,19 +184,13 @@ def main_path(dev):
     t0 = time.time()
     misses = 0
     for i in range(N_FRAMES):
-        events = [("start", torch.cuda.Event(enable_timing=True))]
-        events[0][1].record()
-
-        def mark(name, events=events):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((name, ev))
-
-        state, mask_g, miss = ns.step(state, *staged[(i + 1) % 3], mark=mark)
-        misses += miss
+        clock = StageClock()
+        state, _, mask_g, miss = ns.step(state, *staged[(i + 1) % 3],
+                                         0.01 * i, dist, mark=clock.mark)
         torch.cuda.synchronize()
-        for (_, a), (name, b) in zip(events, events[1:]):
-            ms[name] += a.elapsed_time(b) / N_FRAMES
+        misses += int(miss)
+        for name, t in clock.ms().items():
+            ms[name] += t / N_FRAMES
     wall = time.time() - t0
     launches = dict(kernels.launches.counts)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -173,31 +201,138 @@ def main_path(dev):
     log(f"[main] {N_FRAMES} frames in {wall:.3f} s = {fps:.2f} fps, peak "
         f"memory {peak:.2f} GiB, launches {launches}, misses {misses}")
     check(launches == {"nms": 2 * N_FRAMES, "roi_align": 2 * N_FRAMES,
-                       "fuse": N_FRAMES}, f"launch counts {launches}")
+                       "fuse": N_FRAMES, "fuse_pair": 0, "nms_sorted": 0},
+          f"launch counts {launches}")
     check(mask_g.shape == (H, W) and mask_g.dtype == torch.uint8, "mask_g")
     check(state.n_obs == N_FRAMES + 1 and misses == 0, "n_obs / misses")
     check(bool(torch.isfinite(state.diff).all()), "finite diff")
     fused = int((state.weight > 0).sum())
     check(fused > 1_000_000, f"fused voxels {fused}")
     log(f"[main] fused voxels {fused}, num_objs {int(state.num_objs)}")
-    profile_steps(ns, state, staged)
-    return state, frames, staged, ms, fps, peak, launches, rec, cfg, K4
+    profile_run(lambda: [ns.step(state, *staged[i % 3], 0.0, dist)
+                         for i in range(2)], 2, "step")
+    return (state, frames, staged, ms, fps, peak, launches, rec, cfg, K4,
+            model, dist)
 
 
-def profile_steps(ns, state, staged, n_steps: int = 2):
-    """torch.profiler over a few more steps (after the counted run): the
-    device's busy share of the wall time, and the top ops by device and by
-    host self time."""
+def chunk_path(dev, model, state, staged, K4, dist):
+    """Phase 3: the paired chunk with the in-loop render at full width, on
+    the per-frame phase's model and (warmed) volume. Returns (state, stage
+    ms per frame, fps, peak GiB, launches, cfg)."""
+    import torch
+    from slam_maskrcnn_tpu_torch import kernels
+    from slam_maskrcnn_tpu_torch.fusion.fuse import init_state
+    from slam_maskrcnn_tpu_torch.fusion.splat import OrbitRenderer
+    from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
+    from slam_maskrcnn_tpu_torch.samples.north_star import NorthStar
+
+    # the bench's north-star configuration (bench.py:235-258)
+    cfg = FusionConfig(vol_dim=VOL, splat_max_blocks=8192,
+                       splat_max_surface=1024 * 1024, splat_max_rows=49152,
+                       splat_row_cap=20, probe_mode="depth", probe_stride=2,
+                       shell_refresh_every=4)
+    ns = NorthStar(model, K4, cfg, H, W, render_mode="instance")
+    depths = torch.stack([staged[i % 3][0] for i in range(N_CHUNK)])
+    colors = torch.stack([staged[i % 3][1] for i in range(N_CHUNK)])
+    es = np.stack([staged[i % 3][2] for i in range(N_CHUNK)])
+    angles = np.arange(N_CHUNK, dtype=np.float32) * np.float32(0.01)
+
+    state, *_ = ns.run_chunk_paired(state, depths, colors, es, angles, dist)
+    torch.cuda.synchronize()
+    n_obs0 = state.n_obs
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.reset()
+    clock = StageClock()
+    t0 = time.time()
+    state, renders, masks_g, misses = ns.run_chunk_paired(
+        state, depths, colors, es, angles, dist, mark=clock.mark)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kernels.launches.counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fps = N_CHUNK / wall
+    ms = {k: v / N_CHUNK for k, v in clock.ms().items()}
+    n_miss = int(misses.sum())
+    log("[chunk] per-stage ms per frame: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    log(f"[chunk] {N_CHUNK} frames in {wall:.3f} s = {fps:.2f} fps, peak "
+        f"memory {peak:.2f} GiB, launches {launches}, misses {n_miss}")
+    # one batched detect: one NMS launch for the proposals and one for the
+    # detections of all frames, ROIAlign per frame and head; one paired
+    # fuse per two frames
+    check(launches == {"nms": 2, "roi_align": 2 * N_CHUNK, "fuse": 0,
+                       "fuse_pair": N_CHUNK // 2, "nms_sorted": 0},
+          f"chunk launch counts {launches}")
+    check(state.n_obs == n_obs0 + N_CHUNK and n_miss == 0,
+          f"chunk n_obs {state.n_obs} / misses {n_miss}")
+    check(renders.shape == (N_CHUNK, H, W, 3) and renders.dtype
+          == torch.uint8 and masks_g.shape == (N_CHUNK, H, W)
+          and misses.shape == (N_CHUNK // 2,), "chunk output shapes")
+    check(bool(torch.isfinite(state.diff).all()), "finite diff after chunk")
+
+    # what the render's budgets dropped or clipped at this state
+    from slam_maskrcnn_tpu_torch.fusion.splat import (_compact_shell,
+                                                      pinhole_of_orbit,
+                                                      select_candidates)
+    rows = _compact_shell(state, cfg.splat_max_blocks, cfg.splat_max_rows,
+                          cfg.splat_shell_band)
+    codes, ovf, clip = select_candidates(
+        rows, *pinhole_of_orbit(0.0, dist, K4), cfg.splat_row_cap)
+    log(f"[chunk] shell rows {int(rows['n_rows'])} of {cfg.splat_max_rows}, "
+        f"candidates {int((codes >= 0).sum())} of {codes.numel()}, overflow "
+        f"{int(ovf)}, clip {int(clip)}; instance render lights "
+        f"{float((renders.amax(-1) > 0).float().mean()):.4f} of the pixels "
+        f"(random weights)")
+    check(int(ovf) == 0, "shell budgets overflow")
+    del rows, codes
+    # random weights light little in instance mode: prove the render on
+    # the final volume in color mode
+    orb = OrbitRenderer(state, K4, H, W, cfg, mode="color")
+    view = orb.render(0.05, dist)
+    cover = float((view.amax(-1) > 0).float().mean())
+    log(f"[chunk] color-mode orbit view covers {cover:.4f} of the pixels")
+    check(view.shape == (H, W, 3) and cover > 0.25,
+          f"color view coverage {cover}")
+    del orb
+    profile_run(lambda: ns.run_chunk_paired(state, depths, colors, es, angles,
+                                            dist), N_CHUNK, "chunk frame")
+
+    # paired against batched on clones of one warmed 64^3 volume: state
+    # and masks equal, pair-second renders equal (as the CPU test states)
+    small = FusionConfig(vol_dim=(64,) * 3, probe_mode="depth",
+                         probe_stride=2, shell_refresh_every=2)
+    ns_s = NorthStar(model, K4, small, H, W, render_mode="color")
+    v0 = init_state(small, state.vol_start, state.vol_end, device=dev)
+    v0, *_ = ns_s.step(v0, *staged[0], 0.0, dist)
+    four = (depths[1:5], colors[1:5], es[1:5], angles[1:5], dist)
+    vb, rb, mb, _ = ns_s.run_chunk_batched(v0.clone(), *four)
+    vp, rp, mp, _ = ns_s.run_chunk_paired(v0.clone(), *four)
+    for f in ("diff", "weight", "color", "hist"):
+        check(torch.equal(getattr(vb, f), getattr(vp, f)),
+              f"64^3 paired vs batched {f}")
+    check(torch.equal(mb, mp), "64^3 paired vs batched masks")
+    check(torch.equal(rb[1], rp[1]) and torch.equal(rb[3], rp[3])
+          and bool(rp[1].any()), "64^3 pair-second renders")
+    log("[chunk] 64^3: run_chunk_paired == run_chunk_batched (state, masks, "
+        "pair-second renders)")
+    return state, ms, fps, peak, launches, cfg
+
+
+def profile_run(fn, n_frames: int, unit: str):
+    """torch.profiler over one more call of ``fn`` (after the counted run),
+    which covers ``n_frames`` frames: the device's busy share of the wall
+    time, launches per frame, and the top ops by device and by host self
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    n_steps = n_frames
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        for i in range(n_steps):
-            ns.step(state, *staged[i % 3])
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     rows = prof.key_averages()
@@ -208,14 +343,16 @@ def profile_steps(ns, state, staged, n_steps: int = 2):
     on_dev = [e for e in rows if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in on_dev)
     n_launch = sum(e.count for e in rows if e.key == "cudaLaunchKernel")
-    log(f"[profile] {n_steps} steps: wall {wall_us / 1e3:.3f} ms, device "
+    n_sync = sum(e.count for e in rows if e.key == "cudaStreamSynchronize")
+    log(f"[profile] {n_steps} x {unit}: wall {wall_us / 1e3:.3f} ms, device "
         f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
-        f"{n_launch / n_steps:.0f} cudaLaunchKernel per step")
+        f"{n_launch / n_steps:.0f} cudaLaunchKernel and "
+        f"{n_sync / n_steps:.1f} cudaStreamSynchronize per {unit}")
     for key, title, pool in ((dev_us, "device", on_dev),
                              (lambda e: e.self_cpu_time_total, "host", rows)):
         top = sorted(pool, key=key, reverse=True)[:12]
-        log(f"[profile] top by {title} self time (ms over {n_steps} steps, "
-            f"calls):")
+        log(f"[profile] top by {title} self time (ms over {n_steps} x "
+            f"{unit}, calls):")
         for e in top:
             log(f"[profile]   {key(e) / 1e3:9.3f}  {e.count:6d}  {e.key[:90]}")
 
@@ -275,6 +412,47 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
     log(f"[nms] proposals: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
         f"{bms:.5f} ms ({by}), {sel} selections")
 
+    # ---- K4 sorted NMS: the suppression mask against its plain version,
+    # and the variant's selection against K2's, on the same cases
+    err = 0
+    for name, (b, s, cap, thr, sthr) in cases:
+        live = torch.where(s > sthr, s, torch.full_like(s, nm.NEG_INF))
+        _, order = torch.sort(live, dim=1, descending=True, stable=True)
+        bs = torch.gather(b, 1, order[..., None].expand(-1, -1, 4))
+        k_sup = nm._nms_sorted_cuda(bs, thr)
+        p_sup = nm.nms_sorted_suppression_plain(bs[0], thr)
+        si, sv = nm.non_max_suppression(b, s, cap, thr, sthr,
+                                        variant="sorted")
+        ai, av = nm._nms_cuda(b, s, cap, thr, sthr)
+        torch.cuda.synchronize()
+        check(torch.equal(k_sup[0], p_sup), f"nms_sorted {name}: kernel != "
+                                            f"plain")
+        check(torch.equal(si, ai) and torch.equal(sv, av),
+              f"nms_sorted {name}: selection != argmax kernel's")
+        err = max(err, int((k_sup[0].int() - p_sup.int()).abs().max()))
+        log(f"[nms_sorted] {name}: n={s.shape[1]} suppressed "
+            f"{int(k_sup.sum())} -- mask equal, selection equal to argmax")
+    b, s, cap, thr, sthr = rec.seen[("nms", 1000)]
+    _, order = torch.sort(s, dim=1, descending=True, stable=True)
+    bs = torch.gather(b, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    t_k4 = cuda_time_ms(lambda: nm._nms_sorted_cuda(bs, thr), 20)
+    t_p4 = cuda_time_ms(lambda: nm.nms_sorted_suppression_plain(bs[0], thr),
+                        2)
+    t_var = cuda_time_ms(lambda: nm.non_max_suppression(
+        b, s, cap, thr, sthr, variant="sorted"), 20)
+    # bytes: sorted boxes in, the mask out; operations: one IoU (~12
+    # flops) for each pair i < j
+    bms, by = bound_ms(n * 16 + n, n * (n - 1) / 2 * 12)
+    rows["nms_sorted"] = dict(
+        name="nms_sorted", route="cuda",
+        source="slam_maskrcnn_tpu_torch/csrc/nms_sorted.cu",
+        replaces="slam_maskrcnn_tpu/ops/pallas/nms_kernel.py:82",
+        max_abs_err=float(err), ms=t_k4, plain_ms=t_p4, bound_ms=bms,
+        bound_by=by, library_ms=None)
+    log(f"[nms_sorted] proposals: kernel {t_k4:.3f} ms, plain {t_p4:.3f} ms, "
+        f"bound {bms:.5f} ms ({by}); the whole variant (sort, kernel, cut) "
+        f"{t_var:.3f} ms against {t_k:.3f} ms of the argmax kernel")
+
     # ---- K3 PyramidROIAlign: 1000 boxes at pool 7 and 32 at pool 14 on
     # the main path's bf16 pyramid; also fed f32 features
     err = 0.0
@@ -308,14 +486,23 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
     log(f"[roi_align] pool 7 x {boxes.shape[0]}: kernel {t_k:.3f} ms, plain "
         f"{t_p:.3f} ms, bound {bms:.5f} ms ({by})")
 
-    # ---- K1 fuse at 512^3 on the main path's state, next frame + a mask
-    depth, color, e2i = staged[0]
+    # ---- K1 fuse and K1-pair at 512^3 on the main path's state: the next
+    # frames with a mask. Checks first (three copies of the volume), then
+    # times.
+    (depth, color, e2i), (depth2, color2, e2i2) = staged[0], staged[1]
     mask = (depth.to(torch.int32) > 0).to(torch.uint8) * 3
+    mask2 = (depth2.to(torch.int32) > 0).to(torch.uint8) * 5
     params = fz.fuse_params(state, e2i, K4, cfg)
-    w0 = state.weight.clone()
-    h0 = state.hist.sum(dtype=torch.int64)
-    other = fz.TSDFVolume(**{k: (v.clone() if torch.is_tensor(v) else v)
-                             for k, v in vars(state).items()})
+    params2 = fz.fuse_params(state, e2i2, K4, cfg)
+    nvox = VOL[0] * VOL[1] * VOL[2]
+
+    def changes(vol, w0, h0):
+        """(voxels updated, gated updates) since the snapshot."""
+        return (int((vol.weight != w0).sum()),
+                int(vol.hist.sum(dtype=torch.int64) - h0))
+
+    w0, h0 = state.weight.clone(), state.hist.sum(dtype=torch.int64)
+    other = state.clone()
     fz._fuse_cuda(state, depth, color, mask, params)
     fz.fuse_frame_plain(other, depth, color, mask, params)
     torch.cuda.synchronize()
@@ -324,23 +511,61 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
               f"fuse {f}: kernel != plain")
     err = float((state.diff - other.diff).abs().max())
     check(err <= 2e-6, f"fuse diff err {err}")
-    n_valid = int((state.weight - w0).sum())
-    n_gated = int(state.hist.sum(dtype=torch.int64) - h0)
+    n_valid, n_gated = changes(state, w0, h0)
     check(n_valid > 1_000_000 and n_gated > 0, "fuse fixture fuses")
     log(f"[fuse] 512^3: weight/color/hist equal, max |diff| {err:.3e}, "
         f"{n_valid} valid and {n_gated} gated voxels")
-    del w0
+
+    # the pair on `state`, two single launches on `twice`, the plain
+    # version twice on `other`
+    w0.copy_(state.weight)
+    h0 = state.hist.sum(dtype=torch.int64)
+    twice = state.clone()
+    pair_args = (depth2, color2, mask2, params2, depth, color, mask, params)
+    fz._fuse_pair_cuda(state, *pair_args)
+    fz._fuse_cuda(twice, *pair_args[:4])
+    fz._fuse_cuda(twice, *pair_args[4:])
+    fz.fuse_frames2_plain(other, *pair_args)
+    torch.cuda.synchronize()
+    for f in ("diff", "weight", "color", "hist"):
+        check(torch.equal(getattr(state, f), getattr(twice, f)),
+              f"fuse_pair {f}: pair != two single launches")
+    for f in ("weight", "color", "hist"):
+        check(torch.equal(getattr(state, f), getattr(other, f)),
+              f"fuse_pair {f}: kernel != plain")
+    err2 = float((state.diff - other.diff).abs().max())
+    check(err2 <= 2e-6, f"fuse_pair diff err {err2}")
+    n_valid2, n_gated2 = changes(state, w0, h0)
+    n_twice = int(((state.weight - w0) == 2).sum())
+    check(n_valid2 > 1_000_000 and n_twice > 100_000,
+          "pair fixture: voxels seen by both frames")
+    log(f"[fuse_pair] 512^3: bit-equal to two single launches (diff too); "
+        f"weight/color/hist equal to plain, max |diff| {err2:.3e}; "
+        f"{n_valid2} voxels updated ({n_twice} by both frames), {n_gated2} "
+        f"gated updates")
+    del w0, twice
+    torch.cuda.empty_cache()
+
+    def two_singles():
+        fz._fuse_cuda(state, *pair_args[:4])
+        fz._fuse_cuda(state, *pair_args[4:])
+
     t_k = cuda_time_ms(lambda: fz._fuse_cuda(state, depth, color, mask,
                                              params), 10)
+    t_pair = cuda_time_ms(lambda: fz._fuse_pair_cuda(state, *pair_args), 10)
+    t_two = cuda_time_ms(two_singles, 10)
+    t_pair_b = cuda_time_ms(lambda: fz._fuse_pair_cuda(state, *pair_args), 10)
     t_p = cuda_time_ms(lambda: fz.fuse_frame_plain(other, depth, color, mask,
                                                    params), 2)
+    t_pp = cuda_time_ms(lambda: fz.fuse_frames2_plain(other, *pair_args), 2)
     del other
     torch.cuda.empty_cache()
-    # bytes this frame needs: the frame (depth 2 + color 3 + mask 1 B per
+    # bytes a frame needs: the frame (depth 2 + color 3 + mask 1 B per
     # pixel) once, diff and weight read+written for valid voxels, color (3)
     # and one histogram bin (2) read+written for gated ones; operations:
-    # the projection (~20 flops) of every voxel
-    nvox = VOL[0] * VOL[1] * VOL[2]
+    # the projection (~20 flops) of every voxel. The pair: both frames,
+    # diff and weight once for a voxel valid in either frame, color and
+    # bin per gated update, two projections.
     bms, by = bound_ms(H * W * 6 + n_valid * 16 + n_gated * 10, nvox * 20)
     rows["fuse"] = dict(name="fuse", route="cuda",
                         source="slam_maskrcnn_tpu_torch/csrc/fuse.cu",
@@ -350,23 +575,40 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
                         bound_by=by, library_ms=None)
     log(f"[fuse] kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
         f"{bms:.5f} ms ({by})")
+    bms, by = bound_ms(2 * H * W * 6 + n_valid2 * 16 + n_gated2 * 10,
+                       nvox * 40)
+    rows["fuse_pair"] = dict(name="fuse_pair", route="cuda",
+                             source="slam_maskrcnn_tpu_torch/csrc/fuse.cu",
+                             replaces="slam_maskrcnn_tpu/ops/pallas/"
+                                      "fuse_kernel.py:2266",
+                             max_abs_err=err2, ms=t_pair, plain_ms=t_pp,
+                             bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"[fuse_pair] kernel {t_pair:.3f} ms (again {t_pair_b:.3f}), two "
+        f"single launches {t_two:.3f} ms, plain {t_pp:.3f} ms, bound "
+        f"{bms:.5f} ms ({by})")
     return rows
 
 
 def stage2_phase(dev):
-    """Phase 4: SemanticFusion on ground-truth masks, 512^3 on the GPU, and
-    64^3 CPU (plain) vs GPU (kernels), which must agree bit for bit."""
+    """Phase 5: SemanticFusion on ground-truth masks, 512^3 on the GPU with
+    an instance render, and 64^3 CPU (plain) vs GPU (kernels): state,
+    masks, renders and the splat probe must agree bit for bit."""
     import torch
     from slam_maskrcnn_tpu_torch.data.synthetic import (default_scene,
                                                         make_sequence)
     from slam_maskrcnn_tpu_torch.fusion.pipeline import SemanticFusion
+    from slam_maskrcnn_tpu_torch.fusion.splat import (INSTANCE_PALETTE,
+                                                      splat_probe,
+                                                      splat_render_orbit)
     from slam_maskrcnn_tpu_torch.fusion.state import (FusionConfig,
                                                       make_intrinsic)
 
     K4 = make_intrinsic(520.9, 521.0, 325.1, 249.7)
     frames = make_sequence(default_scene(), K4, H, W, n_frames=6)
-    sf = SemanticFusion(K4, FusionConfig(vol_dim=VOL, probe_stride=2),
-                        device=dev)
+    cfg = FusionConfig(vol_dim=VOL, splat_max_blocks=8192,
+                       splat_max_surface=1024 * 1024, splat_max_rows=49152,
+                       splat_row_cap=20, probe_mode="depth", probe_stride=2)
+    sf = SemanticFusion(K4, cfg, device=dev)
     t0 = time.time()
     for fr in frames:
         mg = sf.parse_frame(fr["depth"], fr["color"], fr["mask"],
@@ -377,27 +619,46 @@ def stage2_phase(dev):
         f"ids {ids}, num_objs {int(sf.state.num_objs)}")
     check(ids == [0, 1, 2] and int(sf.state.num_objs) == 3,
           "stage-2 association keeps the two sphere ids")
-    del sf
+    # the instance render must show both spheres in their palette colors
+    img = splat_render_orbit(sf.state, 0.05, frames[0]["mean_depth"], K4, H,
+                             W, cfg, mode="instance")
+    torch.cuda.synchronize()
+    share = [float((img == torch.from_numpy(INSTANCE_PALETTE[i]).to(dev))
+                   .all(-1).float().mean()) for i in (1, 2)]
+    log(f"[stage2] 512^3 instance render: palette 1 on {share[0]:.4f}, "
+        f"palette 2 on {share[1]:.4f} of the pixels")
+    check(min(share) > 0.01, f"both spheres in the instance render: {share}")
+    del sf, img
     torch.cuda.empty_cache()
 
+    # 64^3 with the default configuration (splat probe, exact compaction)
     Ks = make_intrinsic(100.0, 100.0, 64.0, 48.0)
     small = make_sequence(default_scene(), Ks, 96, 128, n_frames=5)
+    cfg_s = FusionConfig(vol_dim=(64,) * 3)
+    e2i = np.eye(4, dtype=np.float32)
     outs = []
     for d in ("cpu", dev):
-        sf = SemanticFusion(Ks, FusionConfig(vol_dim=(64,) * 3,
-                                             probe_stride=2), device=d)
+        sf = SemanticFusion(Ks, cfg_s, device=d)
         masks = [sf.parse_frame(fr["depth"], fr["color"], fr["mask"],
                                 fr["extrinsic"], fr["mean_depth"])
                  for fr in small]
-        outs.append((sf.dense_state(), [m.cpu() for m in masks[1:]]))
-    (a, ma), (b, mb) = outs
+        views = [splat_render_orbit(sf.state, 0.1, small[0]["mean_depth"],
+                                    Ks, 96, 128, cfg_s, mode=m).cpu()
+                 for m in ("instance", "color")]
+        probs = splat_probe(sf.state, e2i, Ks, 96, 128, cfg_s)[0].cpu()
+        outs.append((sf.dense_state(), [m.cpu() for m in masks[1:]], views,
+                     probs))
+    (a, ma, va, pa), (b, mb, vb, pb) = outs
     for f in ("diff", "color", "weight", "hist"):
         check(np.array_equal(getattr(a, f), getattr(b, f)),
               f"64^3 CPU vs GPU {f}")
     check(all(torch.equal(x, y) for x, y in zip(ma, mb)), "64^3 masks")
     check(a.num_objs == b.num_objs == 3, "64^3 num_objs")
-    log("[stage2] 64^3: CPU plain == GPU kernels (diff, color, weight, "
-        "hist, masks)")
+    check(all(torch.equal(x, y) for x, y in zip(va, vb))
+          and bool(va[0].any()) and bool(va[1].any()), "64^3 renders")
+    check(torch.equal(pa, pb) and float(pa.sum()) > 0, "64^3 splat probe")
+    log("[stage2] 64^3 (splat probe): CPU plain == GPU kernels (diff, color, "
+        "weight, hist, masks, instance and color renders, probe)")
 
 
 def main() -> int:
@@ -430,20 +691,32 @@ def main() -> int:
         kernels.lib(name)
     log(f"[build] {len(kernels.SOURCES)} kernels in {time.time() - t0:.1f} s")
 
-    (state, frames, staged, ms, fps, peak, launches, rec, cfg,
-     K4) = main_path(dev)
+    (state, frames, staged, ms, fps, peak, launches, rec, cfg, K4, model,
+     dist) = main_path(dev)
+    state, c_ms, c_fps, c_peak, c_launches, _ = chunk_path(
+        dev, model, state, staged, K4, dist)
     rows = kernel_phase(dev, state, staged, rec, cfg, K4)
-    del state
+    del state, model
     torch.cuda.empty_cache()
     stage2_phase(dev)
 
+    # launches: the sum over the two forms of the main path, each counted
+    # from 0 (the per-form counts are in the north_star line)
     for k in rows:
-        rows[k]["launches"] = launches[k]
-    log(json.dumps({"north_star": {"stage_ms": ms, "fps": fps,
-                                   "peak_gib": peak, "frames": N_FRAMES,
-                                   "card": smi}}))
-    log(json.dumps({"kernels": [rows[k] for k in ("fuse", "nms",
-                                                  "roi_align")]}))
+        rows[k]["launches"] = launches[k] + c_launches[k]
+    on_path = ("fuse", "fuse_pair", "nms", "roi_align")
+    check(all(rows[k]["launches"] > 0 for k in on_path),
+          "a kernel of the main path was never launched")
+    log(json.dumps({"north_star": {
+        "step": {"stage_ms": ms, "fps": fps, "peak_gib": peak,
+                 "frames": N_FRAMES, "launches": launches},
+        "paired_chunk": {"stage_ms_per_frame": c_ms, "fps": c_fps,
+                         "peak_gib": c_peak, "frames": N_CHUNK,
+                         "launches": c_launches},
+        "card": smi}}))
+    log(smi)
+    log(json.dumps({"kernels": [rows[k] for k in (
+        "fuse", "fuse_pair", "nms", "nms_sorted", "roi_align")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,8 +8,7 @@ plane) rendered analytically from known camera poses, giving exact depth,
 per-instance masks, and ground-truth SDF values to assert against.
 
 All host-side numpy; used by tests and benchmarks. Copy of
-slam_maskrcnn_tpu/data/synthetic.py (default scene and sequence; the port
-keeps its own copy).
+slam_maskrcnn_tpu/data/synthetic.py (the port keeps its own copy).
 """
 
 from __future__ import annotations
@@ -118,6 +117,63 @@ def identity_pose_sequence(n: int, radius: float = 0.08) -> list[np.ndarray]:
         E[:3, 3] = [-radius * np.cos(ang), -radius * np.sin(ang), 0.0]
         out.append(E.astype(np.float32))
     return out
+
+
+def hard_scene(n_spheres: int = 12, seed: int = 4) -> SphereScene:
+    """A crowded scene for the stress sequence: `n_spheres` spheres spread
+    over a shallow dome in front of a back plane. With a moving camera
+    only a few are visible per frame, so the per-frame (detector-style)
+    mask ids churn across the sequence."""
+    rng = np.random.default_rng(seed)
+    ang = rng.uniform(0, 2 * np.pi, n_spheres)
+    rad = rng.uniform(0.15, 0.52, n_spheres)
+    centers = np.stack([rad * np.cos(ang), rad * np.sin(ang) * 0.6,
+                        rng.uniform(0.9, 1.7, n_spheres)], -1)
+    return SphereScene(
+        centers=centers,
+        radii=rng.uniform(0.06, 0.13, n_spheres),
+        colors=rng.integers(40, 255, (n_spheres, 3)).astype(np.uint8),
+        plane_z=2.2,
+    )
+
+
+def hard_sequence(scene: SphereScene, intrinsic: np.ndarray, H: int, W: int,
+                  n_frames: int = 20, depth_scale: float = 5000.0,
+                  push: float = 0.5, orbit: float = 0.12):
+    """The stress trajectory: the camera orbits
+    AND pushes forward by `push` meters over the sequence — by the second
+    half it is inside the volume bbox inferred from frame 0, exercising
+    the fuse kernel on voxels near and behind the camera plane. Masks carry per-frame
+    LOCAL ids (1..k in scan order, like ``mask_detect`` output,
+    dmask.py:47-59), so cross-frame identity exists only through
+    association; each frame dict carries ``local_to_scene`` for asserting
+    id stability."""
+    # per-frame deltas stay sensor-plausible (~3-4 cm chords): the
+    # reference's Bayesian association (tsdf.cu:304-416) assumes
+    # frame-to-frame overlap of recently-fused surface; 10+ cm jumps make
+    # it allocate fresh ids for everything (measured — see goldens)
+    frames = []
+    for k in range(n_frames):
+        a = 2 * np.pi * k / max(n_frames, 1)
+        E = np.eye(4)
+        E[:3, 3] = [-orbit * np.cos(a), -orbit * 0.5 * np.sin(a),
+                    -push * k / max(n_frames - 1, 1)]
+        E = E.astype(np.float32)
+        depth, color, mask_g = render_frame(scene, E, intrinsic, H, W,
+                                            depth_scale)
+        # global sphere ids -> per-frame local ids (detector contract)
+        present = np.unique(mask_g)
+        present = present[present > 0]
+        local = np.zeros(int(mask_g.max()) + 1, np.uint8)
+        for j, g in enumerate(present):
+            local[g] = j + 1
+        mask = local[mask_g]
+        valid = depth > 0
+        md = float((depth[valid] / depth_scale).mean()) if valid.any() else 0.0
+        frames.append(dict(depth=depth, color=color, mask=mask,
+                           extrinsic=E, mean_depth=md,
+                           local_to_scene=present.astype(np.int32)))
+    return frames
 
 
 def make_sequence(scene: SphereScene, intrinsic: np.ndarray, H: int, W: int,

@@ -14,6 +14,15 @@ need a second 10 GB copy): on CUDA tensors through the kernel of
 csrc/fuse.cu, on CPU tensors through ``fuse_frame_plain``. Both use the
 Pallas kernel's arithmetic (``fuse_params``), so they agree bit for bit.
 
+``fuse_frames2`` fuses two frames in one pass over the volume (the JAX
+package's ``fuse_frames2_blocked_impl`` / ``fuse_frames2_blocked_prepped``):
+per voxel frame 1's update, then frame 2's, bit-identical to two
+``fuse_frame`` calls. The TPU side's ``pair_prep_static``,
+``inject_mask_banded``, ``pair_prepable`` and the blocks it excludes for a
+second pass are banded-table and rect layout for its on-chip memory; a
+kernel that gathers each voxel's pixel needs none of them, and they have
+no counterpart here.
+
 Semantics (tsdf.cu, with the JAX package's deliberate z > 0 guard):
 nearest pixel by floor; skip voxels behind the camera, outside the image,
 with zero depth or with diff <= -mu; diff blends as a running mean of
@@ -56,6 +65,12 @@ class TSDFVolume:
     @property
     def device(self) -> torch.device:
         return self.diff.device
+
+    def clone(self) -> "TSDFVolume":
+        """A deep copy (the update functions work in place)."""
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).clone()
+                     for f in ("diff", "color", "weight", "hist", "num_objs")})
 
 
 def init_state(cfg: FusionConfig, vol_start, vol_end, device="cuda",
@@ -194,15 +209,10 @@ def fuse_frame_plain(vol: TSDFVolume, depth: torch.Tensor,
         hist_s[sel, m] = hist_s[sel, m] + 1
 
 
-def _fuse_cuda(vol: TSDFVolume, depth, color, mask, params) -> None:
-    X, Y, Z = vol.diff.shape
-    K = vol.hist.shape[-1]
+def _frame_for_kernel(vol: TSDFVolume, depth, color, mask):
+    """The frame as contiguous tensors of the kernel's types on the
+    volume's device."""
     H, W = depth.shape
-    for t, dt in ((vol.diff, torch.float32), (vol.color, torch.uint8),
-                  (vol.weight, torch.int32), (vol.hist, torch.int16)):
-        if t.dtype != dt or not t.is_contiguous() or not t.is_cuda:
-            raise ValueError("volume tensors must be contiguous CUDA tensors "
-                             "of the TSDFVolume dtypes")
     if depth.dtype not in (torch.uint16, torch.int16):
         depth = depth.to(torch.int32).to(torch.uint16)   # raw u16 units
     depth = depth.to(vol.device).contiguous()
@@ -210,6 +220,23 @@ def _fuse_cuda(vol: TSDFVolume, depth, color, mask, params) -> None:
     mask = mask.to(vol.device, torch.uint8).contiguous()
     if color.shape != (H, W, 3) or mask.shape != (H, W):
         raise ValueError("depth [H, W], color [H, W, 3], mask [H, W] expected")
+    return depth, color, mask
+
+
+def _check_volume(vol: TSDFVolume) -> None:
+    for t, dt in ((vol.diff, torch.float32), (vol.color, torch.uint8),
+                  (vol.weight, torch.int32), (vol.hist, torch.int16)):
+        if t.dtype != dt or not t.is_contiguous() or not t.is_cuda:
+            raise ValueError("volume tensors must be contiguous CUDA tensors "
+                             "of the TSDFVolume dtypes")
+
+
+def _fuse_cuda(vol: TSDFVolume, depth, color, mask, params) -> None:
+    X, Y, Z = vol.diff.shape
+    K = vol.hist.shape[-1]
+    H, W = depth.shape
+    _check_volume(vol)
+    depth, color, mask = _frame_for_kernel(vol, depth, color, mask)
     p = np.ascontiguousarray(params, np.float32)
     fn = kernels.lib("fuse").fuse_frame_cuda
     kernels.launches.add("fuse")
@@ -219,6 +246,38 @@ def _fuse_cuda(vol: TSDFVolume, depth, color, mask, params) -> None:
              p.ctypes.data_as(ctypes.c_void_p),
              kernels.stream_ptr(vol.device))
     kernels.check(err, "fuse kernel")
+
+
+def fuse_frames2_plain(vol: TSDFVolume, depth1, color1, mask1, params1,
+                       depth2, color2, mask2, params2) -> None:
+    """Plain PyTorch version of the paired fuse kernel: the single-frame
+    plain version twice, in place."""
+    fuse_frame_plain(vol, depth1, color1, mask1, params1)
+    fuse_frame_plain(vol, depth2, color2, mask2, params2)
+
+
+def _fuse_pair_cuda(vol: TSDFVolume, depth1, color1, mask1, params1,
+                    depth2, color2, mask2, params2) -> None:
+    X, Y, Z = vol.diff.shape
+    K = vol.hist.shape[-1]
+    H, W = depth1.shape
+    if depth2.shape != (H, W):
+        raise ValueError("both frames of a pair must have one size")
+    _check_volume(vol)
+    depth1, color1, mask1 = _frame_for_kernel(vol, depth1, color1, mask1)
+    depth2, color2, mask2 = _frame_for_kernel(vol, depth2, color2, mask2)
+    p1 = np.ascontiguousarray(params1, np.float32)
+    p2 = np.ascontiguousarray(params2, np.float32)
+    fn = kernels.lib("fuse").fuse_frames2_cuda
+    kernels.launches.add("fuse_pair")
+    err = fn(kernels.ptr(vol.diff), kernels.ptr(vol.color),
+             kernels.ptr(vol.weight), kernels.ptr(vol.hist), X, Y, Z, K,
+             kernels.ptr(depth1), kernels.ptr(color1), kernels.ptr(mask1),
+             p1.ctypes.data_as(ctypes.c_void_p),
+             kernels.ptr(depth2), kernels.ptr(color2), kernels.ptr(mask2),
+             p2.ctypes.data_as(ctypes.c_void_p), H, W,
+             kernels.stream_ptr(vol.device))
+    kernels.check(err, "paired fuse kernel")
 
 
 def fuse_frame(vol: TSDFVolume, depth: torch.Tensor, color: torch.Tensor,
@@ -236,4 +295,22 @@ def fuse_frame(vol: TSDFVolume, depth: torch.Tensor, color: torch.Tensor,
     else:
         fuse_frame_plain(vol, depth, color, mask, params)
     vol.n_obs += 1
+    return vol
+
+
+def fuse_frames2(vol: TSDFVolume, depth1, color1, mask1, extrinsic2init1,
+                 depth2, color2, mask2, extrinsic2init2, intrinsic,
+                 cfg: FusionConfig) -> TSDFVolume:
+    """Fuse two frames into ``vol`` in place in one pass (n_obs += 2):
+    frame 1's update, then frame 2's, per voxel. Arguments per frame as
+    ``fuse_frame``. Returns ``vol``."""
+    p1 = fuse_params(vol, extrinsic2init1, intrinsic, cfg)
+    p2 = fuse_params(vol, extrinsic2init2, intrinsic, cfg)
+    if on_cuda(vol.diff):
+        _fuse_pair_cuda(vol, depth1, color1, mask1, p1,
+                        depth2, color2, mask2, p2)
+    else:
+        fuse_frames2_plain(vol, depth1, color1, mask1, p1,
+                           depth2, color2, mask2, p2)
+    vol.n_obs += 2
     return vol

@@ -1,0 +1,209 @@
+"""TSDF raycasting: the exact ray-march probe and renderer.
+
+Port of slam_maskrcnn_tpu/fusion/raycast.py, the JAX package's version of
+the reference's two ray kernels (``back_proj_kernel``,
+src/SfM_CUDA/tsdf.cu:72-135, and ``show_tsdf_kernel``,
+src/SfM_CUDA/viewer.cu:17-86). Both share one ray marcher; only the
+shading differs. The march advances every live ray of the pixel grid per
+iteration with finished rays masked, as the JAX ``while_loop`` does; here
+it is a Python loop that ends when no ray is alive (one host sync per
+iteration) or at cfg.max_march_steps. The adaptive step rule (full voxel,
+then voxel/4 once |f| < voxel/2, tsdf.cu:116-119) is kept per ray.
+
+This is the oracle for fusion/splat.py; the main path renders by
+splatting.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from slam_maskrcnn_tpu_torch.fusion.fuse import TSDFVolume, _host_f32
+from slam_maskrcnn_tpu_torch.fusion.splat import INSTANCE_PALETTE
+from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
+
+__all__ = ["INSTANCE_PALETTE", "trilinear", "ray_march", "camera_rays",
+           "back_project_probe", "orbit_camera", "render", "render_orbit"]
+
+
+def _t(a, dev) -> torch.Tensor:
+    return torch.tensor(_host_f32(a), device=dev)
+
+
+def trilinear(vol: torch.Tensor, vol_start, voxel, pos: torch.Tensor,
+              u16: bool = False) -> torch.Tensor:
+    """Trilinear sample of a volume at world positions.
+
+    ``vol``: [X, Y, Z] or [X, Y, Z, C]; ``pos``: [..., 3]. Mirrors
+    ``interp_tsdf_diff/color/cnt`` (utils.cu:99-170) with the corner
+    indices clamped to the grid. ``u16``: the values are u16 counts stored
+    in int16 (the volume's histogram) and are read as such."""
+    dims = vol.shape[:3]
+    chan = tuple(vol.shape[3:])
+    dev = vol.device
+    idx = (pos - _t(vol_start, dev)) / _t(voxel, dev)
+    flf = torch.floor(idx)
+    fr = idx - flf
+    # positions far outside the grid clamp anyway: bound before the cast
+    fl = flf.clamp(-2.0, float(max(dims)) + 1.0).to(torch.int64)
+    flat = vol.reshape((-1,) + chan)
+    sy, sx = dims[2], dims[1] * dims[2]
+
+    def corner(i, j, k):
+        ci = (fl[..., 0] + i).clamp(0, dims[0] - 1)
+        cj = (fl[..., 1] + j).clamp(0, dims[1] - 1)
+        ck = (fl[..., 2] + k).clamp(0, dims[2] - 1)
+        v = flat[ci * sx + cj * sy + ck]
+        if u16:
+            v = v.to(torch.int32) & 0xFFFF
+        return v.to(torch.float32)
+
+    if chan:
+        fx, fy, fz = fr[..., 0:1], fr[..., 1:2], fr[..., 2:3]
+    else:
+        fx, fy, fz = fr[..., 0], fr[..., 1], fr[..., 2]
+
+    def mix(a, b, t):
+        return (1.0 - t) * a + t * b
+
+    low = mix(mix(corner(0, 0, 0), corner(1, 0, 0), fx),
+              mix(corner(0, 1, 0), corner(1, 1, 0), fx), fy)
+    high = mix(mix(corner(0, 0, 1), corner(1, 0, 1), fx),
+               mix(corner(0, 1, 1), corner(1, 1, 1), fx), fy)
+    return mix(low, high, fz)
+
+
+def ray_march(vol: TSDFVolume, origins: torch.Tensor, dirs: torch.Tensor,
+              cfg: FusionConfig, tmin_clip: float = 0.01,
+              tmax_clip: float = 100.0):
+    """March rays against the SDF. origins/dirs: [..., 3] (origins
+    broadcast). Returns (hit [...], t_hit [...]) with the reference's
+    stepping: AABB slab test (tsdf.cu:90-101), start at tnear + 1e-6,
+    full-voxel steps dropping to voxel/4 near the surface, linear
+    zero-crossing refinement t += step * f_tt / (f_t - f_tt)
+    (tsdf.cu:103-124)."""
+    dev = vol.device
+    d = dirs.to(torch.float32)
+    o = origins.to(torch.float32).expand_as(d)
+    vs, ve = _t(vol.vol_start, dev), _t(vol.vol_end, dev)
+    inv_d = 1.0 / d
+    tbot = inv_d * (vs - o)
+    ttop = inv_d * (ve - o)
+    tnear = torch.minimum(ttop, tbot).max(-1).values.clamp_min(tmin_clip)
+    tfar = torch.maximum(ttop, tbot).min(-1).values.clamp_max(tmax_clip) \
+        - 1e-6
+    voxel0 = float(vol.voxel[0])
+
+    def sample(t):
+        return trilinear(vol.diff, vol.vol_start, vol.voxel,
+                         o + t[..., None] * d)
+
+    t = tnear + 1e-6
+    f_t = sample(t)
+    # only rays that intersect the AABB and start outside the surface march
+    alive = (tnear <= tfar) & (f_t > 0) & (t < tfar)
+    step = torch.full_like(t, voxel0)
+    hit = torch.zeros_like(alive)
+    t_hit = torch.zeros_like(t)
+    for _ in range(cfg.max_march_steps):
+        if not bool(alive.any()):
+            break
+        f_tt = sample(t)
+        hit_now = alive & (f_tt < 0.0)
+        # zero-crossing refinement with the pre-update step size
+        t_ref = t + step * f_tt / (f_t - f_tt)
+        t_hit = torch.where(hit_now, t_ref, t_hit)
+        cont = alive & ~hit_now
+        step = torch.where(cont & (f_tt < voxel0 / 2.0),
+                           torch.full_like(step, voxel0 / 4.0), step)
+        f_t = torch.where(cont, f_tt, f_t)
+        t = torch.where(cont, t + step, t)
+        alive = cont & (t < tfar)
+        hit = hit | hit_now
+    return hit, t_hit
+
+
+def camera_rays(intrinsic_inv, H: int, W: int, device="cpu") -> torch.Tensor:
+    """Per-pixel camera-frame ray targets K^-1 @ [x, y, 1] -> [H, W, 3]."""
+    Ki = _t(intrinsic_inv, device)
+    xs = torch.arange(W, dtype=torch.float32, device=device)[None, :, None]
+    ys = torch.arange(H, dtype=torch.float32, device=device)[:, None, None]
+    ones = torch.ones(H, W, 1, dtype=torch.float32, device=device)
+    return (Ki[None, None, :3, 0] * xs + Ki[None, None, :3, 1] * ys
+            + Ki[None, None, :3, 2] * ones)
+
+
+def back_project_probe(vol: TSDFVolume, extrinsic2init, intrinsic_inv,
+                       H: int, W: int, cfg: FusionConfig):
+    """What the fused model claims each pixel's instance is
+    (= ``back_proj_kernel``, tsdf.cu:72-135): rays from the current camera;
+    at the surface hit, the trilinearly sampled raw instance histogram
+    ``probs`` [H, W, K]; ``box_mask`` flags bins whose interpolated count
+    exceeds cfg.box_mask_thresh."""
+    dev = vol.device
+    E = _t(extrinsic2init, dev)
+    R_t = E[:3, :3].T
+    o = -R_t @ E[:3, 3]
+    targets = camera_rays(intrinsic_inv, H, W, dev)
+    d = targets @ R_t.T
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    hit, t_hit = ray_march(vol, o, d, cfg)
+    pos = o + t_hit[..., None] * d
+    cnts = trilinear(vol.hist, vol.vol_start, vol.voxel, pos, u16=True)
+    probs = torch.where(hit[..., None], cnts, torch.zeros_like(cnts))
+    return probs, probs > cfg.box_mask_thresh
+
+
+def orbit_camera(angle, dist):
+    """Orbit extrinsic [4, 4] and camera center [3] of the reference viewer
+    (viewer.cu:140-146), float32 numpy."""
+    angle, dist = np.float32(angle), np.float32(dist)
+    half = np.float32(0.5)
+    ca, sa = np.cos(angle), np.sin(angle)
+    rot = np.eye(4, dtype=np.float32)
+    rot[0, 0], rot[0, 2], rot[0, 3] = ca, -sa, dist * sa
+    rot[2, 0], rot[2, 2], rot[2, 3] = sa, ca, dist - dist * ca
+    c = np.array([(dist + half) * sa, 0.0,
+                  (dist + half) - (dist + half) * ca], np.float32)
+    return rot, c
+
+
+def render(vol: TSDFVolume, s2w, center, H: int, W: int, cfg: FusionConfig,
+           mode: str = "instance") -> torch.Tensor:
+    """Raycast render (= ``show_tsdf_kernel``, viewer.cu:17-86).
+
+    mode="instance": argmax of the trilinear instance histogram at the hit,
+    colored by the fixed palette, background and instance 0 black
+    (viewer.cu:69-83). mode="color": the trilinear volume color as stored.
+    Returns uint8 [H, W, 3]."""
+    dev = vol.device
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    S = _t(s2w, dev)
+    c = _t(center, dev)
+    target = torch.stack([S[r, 0] * xs + S[r, 1] * ys + S[r, 2] + S[r, 3]
+                          for r in range(3)], dim=-1)
+    d = target - c
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    hit, t_hit = ray_march(vol, c, d, cfg)
+    pos = c + t_hit[..., None] * d
+    if mode == "color":
+        rgb = trilinear(vol.color.to(torch.float32), vol.vol_start,
+                        vol.voxel, pos)
+        return torch.where(hit[..., None], rgb,
+                           torch.zeros_like(rgb)).to(torch.uint8)
+    cnts = trilinear(vol.hist, vol.vol_start, vol.voxel, pos, u16=True)
+    obj = torch.argmax(cnts, dim=-1)
+    visible = hit & (obj > 0) & (cnts.max(dim=-1).values > 0)
+    pal = torch.from_numpy(INSTANCE_PALETTE).to(dev)
+    return torch.where(visible[..., None], pal[obj], torch.zeros_like(pal[:1]))
+
+
+def render_orbit(vol: TSDFVolume, angle, dist, intrinsic_inv, H: int, W: int,
+                 cfg: FusionConfig, mode: str = "instance") -> torch.Tensor:
+    """= ``Viewer::show_tsdf`` (viewer.cu:137-166): orbit camera at
+    ``angle`` / ``dist``, s2w = rot @ K^-1."""
+    rot, c = orbit_camera(angle, dist)
+    s2w = rot @ _host_f32(intrinsic_inv)
+    return render(vol, s2w, c, H, W, cfg, mode)

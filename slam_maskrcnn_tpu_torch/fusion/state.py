@@ -2,7 +2,9 @@
 
 Port of the production part of slam_maskrcnn_tpu/fusion/state.py. The JAX
 package's ``pallas_*``, rect, budget and sparse knobs choose TPU layouts
-that give bit-identical results and have no counterpart here.
+that give bit-identical results and have no counterpart here; neither has
+``splat_select_approx`` (the TPU's ``approx_min_k`` candidate selection):
+the exact stable sort is the semantics.
 
 Semantics kept from the reference (``src/SfM_CUDA/tsdf.cu``): the volume
 is axis-aligned in the first camera's frame, sized from the first depth
@@ -31,16 +33,44 @@ class FusionConfig:
     depth_scale: float = 5000.0          # raw u16 / depth_scale = m, tsdf.cu:49
     color_diff_gate: float = 0.99        # color/hist update gate, tsdf.cu:57
     box_mask_thresh: float = 0.3         # probe box_mask threshold, tsdf.cu:128
-    # association probe: "depth" back-projects the live depth map to voxel
-    # ids (fusion/splat.py depth_probe). The splat probe is not ported yet.
-    probe_mode: str = "depth"
+    max_march_steps: int = 4096          # ray-march oracle (fusion/raycast.py)
+    # splat probe/renderer compaction budgets (fusion/splat.py): 8x8x32
+    # blocks holding surface, 128-voxel rows of them kept by the level-1
+    # compaction, and (exact form) visible surface voxels kept for the
+    # z-buffer. Exceeding a budget is counted into the step's miss channel.
+    splat_max_blocks: int = 2048
+    splat_max_surface: int = 256 * 1024
+    splat_max_rows: int = 16384
+    # surface shell thickness: normalized SDF in (-band, 0)
+    splat_shell_band: float = 0.999
+    # > 0: keep this many z-nearest visible voxels per 128-voxel row
+    # (clipped entries are counted into the separate clip channel); 0: the
+    # exact compaction. None resolves to 24 for fine volumes (>= 256^3) and
+    # 0 for coarse ones.
+    splat_row_cap: int | None = None
+    # association probe: "splat" projects the stored surface shell
+    # (fusion/splat.py splat_probe); "depth" back-projects the live depth
+    # map to voxel ids (depth_probe)
+    probe_mode: str = "splat"
     # probe every probe_stride-th pixel (association sums over thousands
-    # of pixels per mask, so a 2x subsample keeps outcomes)
+    # of pixels per mask, so a 2x subsample keeps outcomes). Only the depth
+    # probe honors it.
     probe_stride: int = 1
+    # north-star chunk: refresh the render's candidate set every N frames
+    # instead of every frame (needs probe_mode="depth"). 1 = every frame.
+    shell_refresh_every: int = 1
+    # paired-frame fusion: inject the pair-first frame's relabeled mask
+    # into the pair-second frame's probe as a depth-gated one-hot vote
+    # (fusion/pipeline.py fusion_step_pair)
+    pair_probe_boost: bool = True
 
     def __post_init__(self):
-        if self.probe_mode != "depth":
-            raise NotImplementedError("only probe_mode='depth' is ported")
+        if self.probe_mode not in ("splat", "depth"):
+            raise ValueError(f"probe_mode {self.probe_mode!r}: 'splat' or "
+                             "'depth'")
+        if self.splat_row_cap is None:
+            object.__setattr__(self, "splat_row_cap",
+                               24 if min(self.vol_dim) >= 256 else 0)
 
     @property
     def n_voxels(self) -> int:

@@ -24,19 +24,26 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("fuse", "nms", "roi_align")
+SOURCES = ("fuse", "nms", "nms_sorted", "roi_align")
+# the kernels that have a wrapper and a launch count of their own
+# (csrc/fuse.cu holds two)
+KERNELS = ("fuse", "fuse_pair", "nms", "nms_sorted", "roi_align")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# argument types of each library's entry point (pointers and the stream
+# argument types of each library's entry points (pointers and the stream
 # as c_void_p: a bare Python int would be cut to 32 bits)
 _SIGNATURES = {
-    "fuse": ("fuse_frame_cuda", [_P, _P, _P, _P, _I, _I, _I, _I,
-                                 _P, _P, _P, _I, _I, _P, _P]),
-    "nms": ("nms_cuda", [_P, _P, _I, _I, _I, _F, _F, _P, _P, _P]),
-    "roi_align": ("roi_align_cuda", [_I, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _F, _P, _P]),
+    "fuse": {"fuse_frame_cuda": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                 _P, _P, _P, _I, _I, _P, _P],
+             "fuse_frames2_cuda": [_P, _P, _P, _P, _I, _I, _I, _I,
+                                   _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _P]},
+    "nms": {"nms_cuda": [_P, _P, _I, _I, _I, _F, _F, _P, _P, _P]},
+    "nms_sorted": {"nms_sorted_cuda": [_P, _I, _I, _F, _P, _P, _P]},
+    "roi_align": {"roi_align_cuda": [_I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _F, _P, _P]},
 }
 
 _lock = threading.Lock()
@@ -101,10 +108,10 @@ def lib(name: str) -> ctypes.CDLL:
             paths = build_all()
             for n, path in paths.items():
                 dll = ctypes.CDLL(path)
-                fn_name, argtypes = _SIGNATURES[n]
-                fn = getattr(dll, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                for fn_name, argtypes in _SIGNATURES[n].items():
+                    fn = getattr(dll, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
                 _libs[n] = dll
         return _libs[name]
 
@@ -130,7 +137,7 @@ class LaunchCounter:
     launches its kernel and nowhere else."""
 
     def __init__(self):
-        self.counts = {n: 0 for n in SOURCES}
+        self.counts = {n: 0 for n in KERNELS}
 
     def add(self, name: str) -> None:
         self.counts[name] += 1

@@ -6,6 +6,13 @@ exactly ``max_output`` indices plus a validity mask, in selection order
 it launches the kernel of csrc/nms.cu (one thread block per image); on a
 CPU tensor it runs ``non_max_suppression_plain``, the same algorithm as a
 fixed-trip loop of tensor ops.
+
+``variant="sorted"`` (the JAX package's ``_nms_pallas_sorted_jit``) gives
+the same selection another way: a stable sort by descending score, the
+suppression mask of greedy NMS over the sorted boxes (the kernel of
+csrc/nms_sorted.cu on a CUDA tensor, ``nms_sorted_suppression_plain`` on a
+CPU tensor), then the first ``max_output`` kept boxes mapped back through
+the sort order. No entry point takes it by default.
 """
 
 from __future__ import annotations
@@ -69,18 +76,91 @@ def _nms_cuda(boxes, scores, max_output, iou_threshold, score_threshold):
     return idx.long(), valid.bool()
 
 
+def nms_sorted_suppression_plain(boxes: torch.Tensor,
+                                 iou_threshold: float) -> torch.Tensor:
+    """Plain PyTorch version of the sorted-NMS kernel: boxes [n, 4] in
+    selection (score-descending) order -> sup u8 [n], 1 where an earlier
+    kept box overlaps the box with IoU > iou_threshold. A loop over the
+    boxes in order; no host sync."""
+    n = boxes.shape[0]
+    arange = torch.arange(n, device=boxes.device)
+    sup = torch.zeros(n, dtype=torch.bool, device=boxes.device)
+    for i in range(n):
+        iou = compute_iou_matrix(boxes[i][None], boxes)[0]
+        sup = sup | ((iou > iou_threshold) & (arange > i) & ~sup[i])
+    return sup.to(torch.uint8)
+
+
+def _nms_sorted_cuda(boxes: torch.Tensor,
+                     iou_threshold: float) -> torch.Tensor:
+    """boxes f32 [B, n, 4] sorted by descending score -> sup u8 [B, n]."""
+    if boxes.dtype != torch.float32 or boxes.dim() != 3 \
+            or boxes.shape[-1] != 4 or not boxes.is_cuda:
+        raise ValueError("sorted nms kernel takes float32 CUDA boxes "
+                         f"[B, n, 4], got {boxes.dtype} "
+                         f"{tuple(boxes.shape)} on {boxes.device}")
+    boxes = boxes.contiguous()
+    B, n = boxes.shape[:2]
+    nw = (n + 63) // 64
+    bits = torch.empty(B, n, nw, dtype=torch.int64, device=boxes.device)
+    sup = torch.empty(B, n, dtype=torch.uint8, device=boxes.device)
+    fn = kernels.lib("nms_sorted").nms_sorted_cuda
+    kernels.launches.add("nms_sorted")
+    err = fn(kernels.ptr(boxes), B, n, float(iou_threshold),
+             kernels.ptr(bits), kernels.ptr(sup),
+             kernels.stream_ptr(boxes.device))
+    kernels.check(err, "sorted nms kernel")
+    return sup
+
+
+def _nms_sorted(boxes, scores, max_output, iou_threshold, score_threshold):
+    """The sorted variant on a batch: boxes [B, n, 4], scores [B, n]."""
+    B, n = scores.shape
+    dev = scores.device
+    live = torch.where(scores > score_threshold, scores,
+                       torch.full_like(scores, NEG_INF))
+    # descending, ties to the lower original index (a stable sort)
+    s_sorted, order = torch.sort(live, dim=1, descending=True, stable=True)
+    b_sorted = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    if on_cuda(scores):
+        sup = _nms_sorted_cuda(b_sorted.float(), iou_threshold)
+    else:
+        sup = torch.stack([nms_sorted_suppression_plain(b_sorted[i],
+                                                        iou_threshold)
+                           for i in range(B)])
+    keep = (sup == 0) & (s_sorted > NEG_INF / 2)
+    # the first max_output kept entries, in order; the rest (0, invalid)
+    pos = torch.cumsum(keep, dim=1) - 1
+    slot = torch.where(keep & (pos < max_output), pos,
+                       torch.full_like(pos, max_output))
+    idx = torch.zeros(B, max_output + 1, dtype=torch.int64, device=dev)
+    idx.scatter_(1, slot, order)
+    valid = torch.zeros(B, max_output + 1, dtype=torch.bool, device=dev)
+    valid.scatter_(1, slot, keep)
+    idx, valid = idx[:, :max_output], valid[:, :max_output]
+    return torch.where(valid, idx, torch.zeros_like(idx)), valid
+
+
 def non_max_suppression(boxes: torch.Tensor, scores: torch.Tensor,
                         max_output: int, iou_threshold: float = 0.5,
-                        score_threshold: float = float("-inf")):
+                        score_threshold: float = float("-inf"),
+                        variant: str = "argmax"):
     """Greedy NMS over boxes [..., n, 4] and scores [..., n] (one leading
     batch dim at most). Returns (indices i64 [..., max_output], valid bool).
 
     CUDA tensors launch the kernel (one launch for the whole batch); CPU
-    tensors take the plain version image by image."""
+    tensors take the plain version image by image. ``variant``: "argmax"
+    (default, one selection at a time) or "sorted" (sort, suppression mask,
+    cut; see the module docstring): both give the same selection."""
+    if variant not in ("argmax", "sorted"):
+        raise ValueError(f"variant {variant!r}: 'argmax' or 'sorted'")
     batched = scores.dim() == 2
     b = boxes if batched else boxes[None]
     s = scores if batched else scores[None]
-    if on_cuda(s):
+    if variant == "sorted":
+        idx, valid = _nms_sorted(b, s, max_output, iou_threshold,
+                                 score_threshold)
+    elif on_cuda(s):
         idx, valid = _nms_cuda(b, s, max_output, iou_threshold,
                                score_threshold)
     else:

@@ -30,6 +30,10 @@ from slam_maskrcnn_tpu_torch.fusion.fuse import (fuse_frame, fuse_params,
                                                  to_dense)
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
 
+# the suite runs several workers on few cores: keep torch's thread pool
+# small, or its spinning threads starve one another
+torch.set_num_threads(2)
+
 H, W = 96, 128
 K4 = make_intrinsic(100.0, 100.0, W / 2, H / 2)
 JCFG = JFusionConfig(vol_dim=(64,) * 3, hist_dtype=jnp.uint16)

@@ -23,6 +23,10 @@ from slam_maskrcnn_tpu_torch.fusion.pipeline import SemanticFusion
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
 from test_torch_fuse import K4, H, W, _ambiguous_voxels
 
+# the suite runs several workers on few cores: keep torch's thread pool
+# small, or its spinning threads starve one another
+torch.set_num_threads(2)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -70,7 +74,7 @@ def test_semantic_fusion_matches_jax():
     frames = hard_sequence(hard_scene(), K4, H, W, n_frames=6)
     jcfg = JFusionConfig(vol_dim=(64,) * 3, hist_dtype=jnp.uint16,
                          probe_mode="depth", probe_stride=2)
-    tcfg = FusionConfig(vol_dim=(64,) * 3, probe_stride=2)
+    tcfg = FusionConfig(vol_dim=(64,) * 3, probe_mode="depth", probe_stride=2)
     jf = JFusion(K4, jcfg, backend="pallas", miss_check_every=0)
     tf = SemanticFusion(K4, tcfg, device="cpu")
     ambiguous = np.zeros((64,) * 3, bool)
@@ -117,6 +121,7 @@ from slam_maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
 from slam_maskrcnn_tpu_torch.models.weights import load_jax_params
 from slam_maskrcnn_tpu_torch.samples.north_star import NorthStar
 import slam_maskrcnn_tpu_torch.ops.nms, slam_maskrcnn_tpu_torch.ops.roi_align
+import slam_maskrcnn_tpu_torch.fusion.raycast, slam_maskrcnn_tpu_torch.fusion.splat
 bad = [m for m in sys.modules if m.startswith("slam_maskrcnn_tpu.")
        or m == "slam_maskrcnn_tpu"]
 assert not bad, bad

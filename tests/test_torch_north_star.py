@@ -43,6 +43,10 @@ from slam_maskrcnn_tpu_torch.ops.roi_align import pyramid_roi_align as t_roi
 from slam_maskrcnn_tpu_torch.samples.north_star import NorthStar
 from test_torch_fuse import _ambiguous_voxels
 
+# the suite runs several workers on few cores: keep torch's thread pool
+# small, or its spinning threads starve one another
+torch.set_num_threads(2)
+
 TINY = dict(NAME="tiny", BACKBONE="resnet50", IMAGE_MIN_DIM=128,
             IMAGE_MAX_DIM=128, NUM_CLASSES=4,
             RPN_ANCHOR_SCALES=(8, 16, 32, 64, 128),
@@ -276,14 +280,14 @@ def test_north_star_slice_matches_jax(models):
     frames = make_sequence(default_scene(), K4, H, W, n_frames=4)
     jcfg = JFusionConfig(vol_dim=(64,) * 3, hist_dtype=jnp.uint16,
                          probe_mode="depth", probe_stride=2)
-    tcfg = FusionConfig(vol_dim=(64,) * 3, probe_stride=2)
+    tcfg = FusionConfig(vol_dim=(64,) * 3, probe_mode="depth", probe_stride=2)
     f0 = frames[0]
     js = init_blocked_from_first_frame(jcfg, f0["depth"], K4,
                                        f0["mean_depth"])
     ts = init_from_first_frame(tcfg, f0["depth"], K4, f0["mean_depth"],
                                device="cpu")
     jns = JNorthStar(jm, K4, jcfg, H, W, render_mode="none")
-    tns = NorthStar(tm, K4, tcfg, H, W)
+    tns = NorthStar(tm, K4, tcfg, H, W, render_mode="none")
     E0i = np.linalg.inv(f0["extrinsic"]).astype(np.float32)
     ids = set()
     ambiguous = np.zeros((64,) * 3, bool)
@@ -293,12 +297,14 @@ def test_north_star_slice_matches_jax(models):
         js, _, jmg, miss = jns.step(js, jnp.asarray(fr["depth"]),
                                     jnp.asarray(fr["color"]), jnp.asarray(e),
                                     0.0, 1.0)
-        ts, tmg, tmiss = tns.step(ts, torch.from_numpy(fr["depth"]),
-                                  torch.from_numpy(fr["color"]), e)
+        ts, trender, tmg, tmiss = tns.step(
+            ts, torch.from_numpy(fr["depth"]), torch.from_numpy(fr["color"]),
+            e, 0.0, 1.0)
+        assert trender.shape == (H, W, 3) and not trender.any()
         jmg = np.asarray(jmg)
         assert tmg.dtype == torch.uint8 and tmg.shape == (H, W)
         assert (tmg.numpy() == jmg).mean() >= 0.999
-        assert int(miss) == 0 and tmiss == 0
+        assert int(miss) == 0 and int(tmiss) == 0
         ids |= set(np.unique(jmg).tolist())
     assert len(ids) >= 2, f"fixture must label an instance: {ids}"
     jd, td = j_dense(js, jcfg), to_dense(ts)

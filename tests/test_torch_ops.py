@@ -12,12 +12,20 @@ import torch
 
 from slam_maskrcnn_tpu.ops import boxes as jboxes
 from slam_maskrcnn_tpu.ops.nms import non_max_suppression as j_nms
+from slam_maskrcnn_tpu.ops.pallas.nms_kernel import (
+    non_max_suppression_pallas as j_nms_pallas)
 from slam_maskrcnn_tpu.ops.roi_align import pyramid_roi_align as j_roi
 from slam_maskrcnn_tpu.ops.roi_align import roi_level as j_level
 from slam_maskrcnn_tpu_torch.ops import boxes as tboxes
-from slam_maskrcnn_tpu_torch.ops.nms import non_max_suppression as t_nms
+from slam_maskrcnn_tpu_torch.ops.nms import (
+    nms_sorted_suppression_plain, non_max_suppression as t_nms)
 from slam_maskrcnn_tpu_torch.ops.roi_align import pyramid_roi_align as t_roi
 from slam_maskrcnn_tpu_torch.samples.north_star import resize_bilinear
+
+
+# the suite runs several workers on few cores: keep torch's thread pool
+# small, or its spinning threads starve one another
+torch.set_num_threads(2)
 
 
 def _boxes(rng, n):
@@ -65,6 +73,48 @@ def test_nms_batched_equals_per_image():
         i, v = t_nms(torch.from_numpy(b[k]), torch.from_numpy(s[k]), 30, 0.5)
         np.testing.assert_array_equal(bi[k].numpy(), i.numpy())
         np.testing.assert_array_equal(bv[k].numpy(), v.numpy())
+
+
+@pytest.mark.parametrize("n,cap,thr,sthr", [
+    (300, 64, 0.7, float("-inf")),     # n not a multiple of 128
+    (200, 200, 0.3, 0.4),              # a score threshold, cap > kept count
+    (130, 10, 0.5, float("-inf"))])
+def test_nms_sorted_variant_matches_argmax_and_jax(n, cap, thr, sthr):
+    """variant="sorted" (stable sort, suppression mask, cut) selects what
+    variant="argmax" selects and what the JAX package's sorted Pallas
+    kernel (interpret mode) selects: indices and validity exactly equal,
+    with exact score ties (to the lower index on every side)."""
+    rng = np.random.default_rng(n)
+    b = _boxes(rng, n)
+    s = rng.uniform(0, 1, n).astype(np.float32)
+    s[rng.choice(n, n // 3, replace=False)] = 0.5     # a block of exact ties
+    s[:20] = s[20:40]                                  # pairwise ties
+    tb, ts = torch.from_numpy(b), torch.from_numpy(s)
+    si, sv = t_nms(tb, ts, cap, thr, sthr, variant="sorted")
+    ai, av = t_nms(tb, ts, cap, thr, sthr, variant="argmax")
+    ji, jv = j_nms_pallas(jnp.asarray(b), jnp.asarray(s), cap, thr, sthr,
+                          variant="sorted")
+    assert si.dtype == torch.int64 and sv.dtype == torch.bool
+    assert torch.equal(sv, av) and torch.equal(si, ai)
+    np.testing.assert_array_equal(sv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(si.numpy(), np.asarray(ji))
+    assert 0 < int(sv.sum()) and (cap != 200 or int(sv.sum()) < cap)
+    bi, bv = t_nms(tb[None].repeat(2, 1, 1), ts[None].repeat(2, 1), cap, thr,
+                   sthr, variant="sorted")
+    assert torch.equal(bi[1], si) and torch.equal(bv[0], sv)
+    with pytest.raises(ValueError, match="variant"):
+        t_nms(tb, ts, cap, thr, sthr, variant="other")
+
+
+def test_nms_sorted_suppression_mask():
+    """The kernel's plain version on sorted boxes: a box is suppressed iff
+    an earlier kept box overlaps it; a suppressed box suppresses nothing."""
+    b = torch.tensor([[0.0, 0.0, 1.0, 1.0],      # kept
+                      [0.0, 0.0, 1.0, 0.9],      # killed by 0 (IoU 0.9)
+                      [0.0, 0.0, 1.0, 0.55],     # IoU 0.55 with 0, 0.61 w/ 1
+                      [2.0, 2.0, 3.0, 3.0]])     # apart
+    assert nms_sorted_suppression_plain(b, 0.6).tolist() == [0, 1, 0, 0]
+    assert nms_sorted_suppression_plain(b, 0.5).tolist() == [0, 1, 1, 0]
 
 
 def test_box_ops_match_jax():
