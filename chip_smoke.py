@@ -21,15 +21,20 @@
    holds run_chunk_paired against run_chunk_batched at 64^3.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (inputs captured from the main path, plus seeded
-   inputs where the main path's are degenerate) and times both; the paired
-   fuse kernel also against two launches of the single one, the sorted NMS
-   kernel also against the argmax kernel's selection.
+   inputs where the main path's are degenerate) and times both; the NMS
+   kernels at the per-frame form's batch of 1 and at the chunk's batch of
+   16, every image of a batch compared; the paired fuse kernel also
+   against two launches of the single one, the sorted NMS kernel also
+   against the argmax kernel's selection.
 5. Stage 2 with the synthetic ground-truth masks at 512^3 (association
    with several ids, then an instance render that must show both
    spheres), and the same at 64^3 on the CPU (plain versions) vs the GPU
    (kernels): state, masks, renders and probe must agree bit for bit.
 
-Prints the card's name and power limit, one {"kernels": [...]} line, and
+Prints the card's name and power limit, one {"kernels": [...]} line (a
+row's "launches" is the total of "launches_by_path", the counts of the two
+forms of the main path, each counted from 0; the NMS rows' times are at
+the chunk's batch, with the batch-1 times beside them), and
 as the last line {"ok": true, "device": {...}}. Any failed check raises,
 so the exit code is not 0. Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
@@ -81,7 +86,9 @@ def check(cond, what):
 
 class Recorder:
     """Keeps a copy of the first inputs each kernel wrapper sees per
-    shape key on the main path (for the kernel-vs-plain phase)."""
+    shape key on the main path (for the kernel-vs-plain phase). The NMS
+    key holds the batch size: the per-frame form launches it at batch 1,
+    the chunk form at the chunk's batch."""
 
     def __init__(self):
         import slam_maskrcnn_tpu_torch.ops.nms as nms_mod
@@ -90,7 +97,7 @@ class Recorder:
         orig_nms, orig_roi = nms_mod._nms_cuda, roi_mod._roi_align_cuda
 
         def nms(boxes, scores, max_output, thr, sthr):
-            key = ("nms", max_output)
+            key = ("nms", max_output, scores.shape[0])
             if key not in self.seen:
                 self.seen[key] = (boxes.clone(), scores.clone(), max_output,
                                   thr, sthr)
@@ -273,7 +280,8 @@ def chunk_path(dev, model, state, staged, K4, dist):
     # what the render's budgets dropped or clipped at this state
     from slam_maskrcnn_tpu_torch.fusion.splat import (_compact_shell,
                                                       pinhole_of_orbit,
-                                                      select_candidates)
+                                                      select_candidates,
+                                                      splat_render_orbit)
     rows = _compact_shell(state, cfg.splat_max_blocks, cfg.splat_max_rows,
                           cfg.splat_shell_band)
     codes, ovf, clip = select_candidates(
@@ -286,14 +294,20 @@ def chunk_path(dev, model, state, staged, K4, dist):
     check(int(ovf) == 0, "shell budgets overflow")
     del rows, codes
     # random weights light little in instance mode: prove the render on
-    # the final volume in color mode
+    # the final volume in color mode. The scene fills the view (0.97 of
+    # the pixels measured at this state): a render that lost part of its
+    # surface to a budget or to the enumeration order falls under 0.9. The
+    # cached renderer must equal the uncached render.
     orb = OrbitRenderer(state, K4, H, W, cfg, mode="color")
     view = orb.render(0.05, dist)
     cover = float((view.amax(-1) > 0).float().mean())
     log(f"[chunk] color-mode orbit view covers {cover:.4f} of the pixels")
-    check(view.shape == (H, W, 3) and cover > 0.25,
+    check(view.shape == (H, W, 3) and cover > 0.9,
           f"color view coverage {cover}")
-    del orb
+    check(torch.equal(view, splat_render_orbit(state, 0.05, dist, K4, H, W,
+                                               cfg, mode="color")),
+          "OrbitRenderer.render != splat_render_orbit")
+    del orb, view
     profile_run(lambda: ns.run_chunk_paired(state, depths, colors, es, angles,
                                             dist), N_CHUNK, "chunk frame")
 
@@ -358,7 +372,7 @@ def profile_run(fn, n_frames: int, unit: str):
 
 
 def kernel_phase(dev, state, staged, rec, cfg, K4):
-    """Phase 3: each kernel vs its plain version at the main path's shapes,
+    """Phase 4: each kernel vs its plain version at the main path's shapes,
     and their times. Returns the kernels JSON rows (without launches)."""
     import torch
     from slam_maskrcnn_tpu_torch.fusion import fuse as fz
@@ -377,81 +391,121 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
     ss = torch.rand(6000, generator=g)
     ss[::7] = 0.5                                         # exact ties
     cls = torch.randint(1, 81, (1000,), generator=g).float()[:, None] * 2.0
-    cases = [("main path proposals", rec.seen[("nms", 1000)]),
-             ("main path detections", rec.seen[("nms", 32)]),
+    sb4 = torch.stack([sb.roll(37 * i, 0) for i in range(4)])
+    ss4 = torch.stack([ss.roll(11 * i, 0) for i in range(4)])
+    cases = [("step proposals", rec.seen[("nms", 1000, 1)]),
+             ("step detections", rec.seen[("nms", 32, 1)]),
+             ("chunk proposals", rec.seen[("nms", 1000, N_CHUNK)]),
+             ("chunk detections", rec.seen[("nms", 32, N_CHUNK)]),
              ("seeded 6000 -> 1000",
               (sb[None].to(dev), ss[None].to(dev), 1000, 0.7,
                float("-inf"))),
+             ("seeded batch of 4, 6000 -> 1000",
+              (sb4.to(dev), ss4.to(dev), 1000, 0.7, float("-inf"))),
              ("seeded class-offset 1000 -> 32",
               ((sb[:1000] + cls)[None].to(dev), ss[None, :1000].to(dev),
                32, 0.3, -5e8))]
     err = 0
     for name, (b, s, cap, thr, sthr) in cases:
         ki, kv = nm._nms_cuda(b, s, cap, thr, sthr)
-        pi, pv = nm.non_max_suppression_plain(b[0], s[0], cap, thr, sthr)
-        torch.cuda.synchronize()
-        check(torch.equal(kv[0], pv) and torch.equal(ki[0], pi),
-              f"nms {name}: kernel != plain")
-        err = max(err, int((ki[0] - pi).abs().max()))
-        log(f"[nms] {name}: n={s.shape[1]} cap={cap} selected "
-            f"{int(kv.sum())} -- indices equal")
-    b, s, cap, thr, sthr = rec.seen[("nms", 1000)]
-    n = s.shape[1]
-    t_k = cuda_time_ms(lambda: nm._nms_cuda(b, s, cap, thr, sthr), 20)
-    t_p = cuda_time_ms(
-        lambda: nm.non_max_suppression_plain(b[0], s[0], cap, thr, sthr), 2)
-    sel = int(nm._nms_cuda(b, s, cap, thr, sthr)[1].sum())
-    # bytes: boxes + scores in, (index, valid) out; operations: one IoU
-    # (~12 flops) per box per selection this input made
-    bms, by = bound_ms(n * 20 + cap * 5, (sel + 1) * n * 12)
+        for i in range(s.shape[0]):          # every image of the batch
+            pi, pv = nm.non_max_suppression_plain(b[i], s[i], cap, thr, sthr)
+            check(torch.equal(kv[i], pv) and torch.equal(ki[i], pi),
+                  f"nms {name}, image {i}: kernel != plain")
+            err = max(err, int((ki[i] - pi).abs().max()))
+        log(f"[nms] {name}: batch {s.shape[0]} n={s.shape[1]} cap={cap} "
+            f"selected {kv.sum(1).tolist()} -- indices equal in every image")
+
+    def time_nms(args):
+        """(kernel ms, plain ms, bound ms, bound by, selections) of one
+        K2 launch on a captured batch."""
+        b, s, cap, thr, sthr = args
+        B, n = s.shape
+        t_k = cuda_time_ms(lambda: nm._nms_cuda(b, s, cap, thr, sthr), 20)
+        t_p = cuda_time_ms(lambda: [nm.non_max_suppression_plain(
+            b[i], s[i], cap, thr, sthr) for i in range(B)], 1, warmup=0)
+        sel = nm._nms_cuda(b, s, cap, thr, sthr)[1].sum(1)
+        # bytes: boxes + scores in, (index, valid) out; operations: one IoU
+        # (~12 flops) per box per selection this input made
+        bms, by = bound_ms(B * (n * 20 + cap * 5),
+                           int((sel + 1).sum()) * n * 12)
+        return t_k, t_p, bms, by, sel.tolist()
+
+    # the row's times are at the chunk's batch (what run_chunk_paired
+    # launches); the per-frame form's batch-1 launch stands beside them
+    t_k, t_p, bms, by, sel = time_nms(rec.seen[("nms", 1000, N_CHUNK)])
+    t_k1, t_p1, bms1, by1, sel1 = time_nms(rec.seen[("nms", 1000, 1)])
     rows["nms"] = dict(name="nms", route="cuda",
                        source="slam_maskrcnn_tpu_torch/csrc/nms.cu",
                        replaces="slam_maskrcnn_tpu/ops/pallas/nms_kernel.py:35",
                        max_abs_err=float(err), ms=t_k, plain_ms=t_p,
-                       bound_ms=bms, bound_by=by, library_ms=None)
-    log(f"[nms] proposals: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
-        f"{bms:.5f} ms ({by}), {sel} selections")
+                       bound_ms=bms, bound_by=by, library_ms=None,
+                       batch=N_CHUNK, batch1_ms=t_k1, batch1_plain_ms=t_p1,
+                       batch1_bound_ms=bms1)
+    log(f"[nms] proposals at batch {N_CHUNK}: kernel {t_k:.3f} ms, plain "
+        f"{t_p:.3f} ms, bound {bms:.5f} ms ({by}), selections {sel}")
+    log(f"[nms] proposals at batch 1: kernel {t_k1:.3f} ms, plain "
+        f"{t_p1:.3f} ms, bound {bms1:.5f} ms ({by1}), selections {sel1}")
 
-    # ---- K4 sorted NMS: the suppression mask against its plain version,
-    # and the variant's selection against K2's, on the same cases
-    err = 0
-    for name, (b, s, cap, thr, sthr) in cases:
+    # ---- K4 sorted NMS: the suppression mask against its plain version
+    # in every image, and the variant's selection against K2's, on the
+    # same cases
+    def sort_boxes(b, s, sthr):
         live = torch.where(s > sthr, s, torch.full_like(s, nm.NEG_INF))
         _, order = torch.sort(live, dim=1, descending=True, stable=True)
-        bs = torch.gather(b, 1, order[..., None].expand(-1, -1, 4))
+        return torch.gather(b, 1, order[..., None].expand(-1, -1, 4)
+                            ).contiguous()
+
+    err = 0
+    for name, (b, s, cap, thr, sthr) in cases:
+        bs = sort_boxes(b, s, sthr)
         k_sup = nm._nms_sorted_cuda(bs, thr)
-        p_sup = nm.nms_sorted_suppression_plain(bs[0], thr)
+        for i in range(s.shape[0]):
+            p_sup = nm.nms_sorted_suppression_plain(bs[i], thr)
+            check(torch.equal(k_sup[i], p_sup),
+                  f"nms_sorted {name}, image {i}: kernel != plain")
+            err = max(err, int((k_sup[i].int() - p_sup.int()).abs().max()))
         si, sv = nm.non_max_suppression(b, s, cap, thr, sthr,
                                         variant="sorted")
         ai, av = nm._nms_cuda(b, s, cap, thr, sthr)
-        torch.cuda.synchronize()
-        check(torch.equal(k_sup[0], p_sup), f"nms_sorted {name}: kernel != "
-                                            f"plain")
         check(torch.equal(si, ai) and torch.equal(sv, av),
               f"nms_sorted {name}: selection != argmax kernel's")
-        err = max(err, int((k_sup[0].int() - p_sup.int()).abs().max()))
-        log(f"[nms_sorted] {name}: n={s.shape[1]} suppressed "
-            f"{int(k_sup.sum())} -- mask equal, selection equal to argmax")
-    b, s, cap, thr, sthr = rec.seen[("nms", 1000)]
-    _, order = torch.sort(s, dim=1, descending=True, stable=True)
-    bs = torch.gather(b, 1, order[..., None].expand(-1, -1, 4)).contiguous()
-    t_k4 = cuda_time_ms(lambda: nm._nms_sorted_cuda(bs, thr), 20)
-    t_p4 = cuda_time_ms(lambda: nm.nms_sorted_suppression_plain(bs[0], thr),
-                        2)
-    t_var = cuda_time_ms(lambda: nm.non_max_suppression(
-        b, s, cap, thr, sthr, variant="sorted"), 20)
-    # bytes: sorted boxes in, the mask out; operations: one IoU (~12
-    # flops) for each pair i < j
-    bms, by = bound_ms(n * 16 + n, n * (n - 1) / 2 * 12)
+        log(f"[nms_sorted] {name}: batch {s.shape[0]} n={s.shape[1]} "
+            f"suppressed {k_sup.sum(1).tolist()} -- mask equal in every "
+            f"image, selection equal to argmax")
+
+    def time_nms_sorted(args):
+        b, s, cap, thr, sthr = args
+        B, n = s.shape
+        bs = sort_boxes(b, s, sthr)
+        t_k = cuda_time_ms(lambda: nm._nms_sorted_cuda(bs, thr), 20)
+        t_p = cuda_time_ms(lambda: [nm.nms_sorted_suppression_plain(
+            bs[i], thr) for i in range(B)], 1, warmup=0)
+        t_var = cuda_time_ms(lambda: nm.non_max_suppression(
+            b, s, cap, thr, sthr, variant="sorted"), 20)
+        # bytes: sorted boxes in, the mask out; operations: one IoU (~12
+        # flops) for each pair i < j
+        bms, by = bound_ms(B * (n * 16 + n), B * n * (n - 1) / 2 * 12)
+        return t_k, t_p, t_var, bms, by
+
+    t_k4, t_p4, t_var, bms, by = time_nms_sorted(
+        rec.seen[("nms", 1000, N_CHUNK)])
+    t_k41, t_p41, t_var1, bms1, by1 = time_nms_sorted(
+        rec.seen[("nms", 1000, 1)])
     rows["nms_sorted"] = dict(
         name="nms_sorted", route="cuda",
         source="slam_maskrcnn_tpu_torch/csrc/nms_sorted.cu",
         replaces="slam_maskrcnn_tpu/ops/pallas/nms_kernel.py:82",
         max_abs_err=float(err), ms=t_k4, plain_ms=t_p4, bound_ms=bms,
-        bound_by=by, library_ms=None)
-    log(f"[nms_sorted] proposals: kernel {t_k4:.3f} ms, plain {t_p4:.3f} ms, "
-        f"bound {bms:.5f} ms ({by}); the whole variant (sort, kernel, cut) "
-        f"{t_var:.3f} ms against {t_k:.3f} ms of the argmax kernel")
+        bound_by=by, library_ms=None, batch=N_CHUNK, batch1_ms=t_k41,
+        batch1_plain_ms=t_p41, batch1_bound_ms=bms1)
+    log(f"[nms_sorted] proposals at batch {N_CHUNK}: kernel {t_k4:.3f} ms, "
+        f"plain {t_p4:.3f} ms, bound {bms:.5f} ms ({by}); the whole variant "
+        f"(sort, kernel, cut) {t_var:.3f} ms against {t_k:.3f} ms of the "
+        f"argmax kernel")
+    log(f"[nms_sorted] proposals at batch 1: kernel {t_k41:.3f} ms, plain "
+        f"{t_p41:.3f} ms, bound {bms1:.5f} ms ({by1}); the whole variant "
+        f"{t_var1:.3f} ms against {t_k1:.3f} ms of the argmax kernel")
 
     # ---- K3 PyramidROIAlign: 1000 boxes at pool 7 and 32 at pool 14 on
     # the main path's bf16 pyramid; also fed f32 features
@@ -700,13 +754,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     stage2_phase(dev)
 
-    # launches: the sum over the two forms of the main path, each counted
-    # from 0 (the per-form counts are in the north_star line)
+    # launches: each form of the main path was counted from 0 on its own
+    # (launches_by_path); "launches" is their total. Every kernel of a
+    # form's path must have launched in that form's run.
+    by_path = {"step": launches, "paired_chunk": c_launches}
+    on_path = {"step": ("fuse", "nms", "roi_align"),
+               "paired_chunk": ("fuse_pair", "nms", "roi_align")}
+    for path, names in on_path.items():
+        check(all(by_path[path][k] > 0 for k in names),
+              f"a kernel of the {path} path was never launched: "
+              f"{by_path[path]}")
     for k in rows:
-        rows[k]["launches"] = launches[k] + c_launches[k]
-    on_path = ("fuse", "fuse_pair", "nms", "roi_align")
-    check(all(rows[k]["launches"] > 0 for k in on_path),
-          "a kernel of the main path was never launched")
+        rows[k]["launches_by_path"] = {p: c[k] for p, c in by_path.items()}
+        rows[k]["launches"] = sum(rows[k]["launches_by_path"].values())
     log(json.dumps({"north_star": {
         "step": {"stage_ms": ms, "fps": fps, "peak_gib": peak,
                  "frames": N_FRAMES, "launches": launches},

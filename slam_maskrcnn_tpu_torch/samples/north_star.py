@@ -31,7 +31,12 @@ shell_refresh_every = N > 1 (probe_mode="depth") a candidate set
 i % N == 0, from the state as it stands then and at that frame's angle,
 decoded once, and re-projected exactly by every frame until the next
 refresh; the refresh's overflow lands in that frame's misses. The JAX
-package writes this schedule as three scan shapes; here it is one loop.
+package writes this schedule as three scan shapes and once more in its
+per-call step; here ``step`` and the chunk forms share one cache, one
+frame counter and one miss rule (``NorthStar._due_candidates``), so N
+``step`` calls from a reset cache give a chunk's outputs, misses included.
+(The JAX per-call step adds the cached overflow to every call until the
+next refresh; its scans, and this port throughout, add it once.)
 Shading always reads the current color and histogram.
 """
 
@@ -274,18 +279,39 @@ class NorthStar:
         return codes, dec, ovf
 
     def reset_candidates(self) -> None:
-        """Drop the per-call candidate cache (e.g. after swapping to an
-        unrelated volume)."""
-        self._cands = self._cands_dec = self._cands_ovf = None
+        """Drop the candidate cache and restart the refresh schedule (e.g.
+        after swapping to an unrelated volume). The chunk forms do so at
+        their start."""
+        self._cands = self._cands_dec = None
         self._step_i = 0
 
+    def _due_candidates(self, state, angle, dist, n_frames: int, mark=None):
+        """The refresh schedule of ``step`` and of every chunk form: before
+        frame i (counted from the last reset) the candidate set is
+        refreshed when i % refresh == 0, or when none is cached; then the
+        counter advances by the ``n_frames`` this set is about to render
+        (2 for a pair). Returns (codes, decode, overflow): all None with
+        shell_refresh_every <= 1, overflow None when nothing was
+        refreshed."""
+        if self.refresh <= 1:
+            return None, None, None
+        ovf = None
+        if self._cands is None or self._step_i % self.refresh == 0:
+            self._cands, self._cands_dec, ovf = self._candidates(
+                state, angle, dist, mark)
+        self._step_i += n_frames
+        return self._cands, self._cands_dec, ovf
+
     # ---- per frame
-    def _fuse_render(self, state, mask, depth, color, e2i, angle, dist,
-                     cands=None, dec=None, mark=None):
-        return fuse_render_step(
-            state, mask, depth, color, e2i, self.intrinsic, angle, dist,
+    def _frame(self, state, mask, depth, color_bgr, e2i, angle, dist, mark):
+        """One frame after its detect: the candidates that are due, then
+        fuse_render_step. A refresh's overflow joins this frame's misses."""
+        cands, dec, ovf = self._due_candidates(state, angle, dist, 1, mark)
+        state, render, mask_g, miss = fuse_render_step(
+            state, mask, depth, color_bgr, e2i, self.intrinsic, angle, dist,
             self.cfg, self.H, self.W, self.share_shell, self.render_mode,
             cands=cands, cands_dec=dec, mark=mark)
+        return state, render, mask_g, miss if ovf is None else miss + ovf
 
     @torch.no_grad()
     def step(self, state, depth: torch.Tensor, color_bgr: torch.Tensor,
@@ -295,62 +321,52 @@ class NorthStar:
         ``mark(stage)``, if given, is called after each stage ("detect",
         "label", "refresh", "associate", "fuse", "render"), e.g. to record
         CUDA events. With cfg.shell_refresh_every = N > 1 the render's
-        candidate set is cached here and refreshed every N calls, and its
-        overflow is added to every call's misses until the next refresh.
+        candidate set is cached on the runner and refreshed every N calls;
+        the refresh's overflow is in that call's misses.
         Returns (state, render [H, W, 3] u8, mask_g [H, W] u8, misses)."""
         mask = self.detect(color_bgr, mark)
         if mark is not None:
             mark("label")
-        if self.refresh <= 1:
-            return self._fuse_render(state, mask, depth, color_bgr, e2i,
-                                     angle, dist, mark=mark)
-        if self._cands is None or self._step_i % self.refresh == 0:
-            (self._cands, self._cands_dec,
-             self._cands_ovf) = self._candidates(state, angle, dist, mark)
-        self._step_i += 1
-        state, render, mask_g, miss = self._fuse_render(
-            state, mask, depth, color_bgr, e2i, angle, dist, self._cands,
-            self._cands_dec, mark)
-        return state, render, mask_g, miss + self._cands_ovf
+        return self._frame(state, mask, depth, color_bgr, e2i, angle, dist,
+                           mark)
 
     # ---- chunks
     def _run(self, state, depths, colors, es, angles, dist, masks, pair,
              mark):
-        """The one schedule behind the chunk forms: walk the stack one
-        frame (or one pair) at a time; refresh the candidates before frame
-        i when i % refresh == 0. ``masks``: precomputed label images, or
-        None to detect inside the loop."""
+        """The loop behind the chunk forms: restart the refresh schedule,
+        then walk the stack one frame (or one pair) at a time. ``masks``:
+        precomputed label images, or None to detect inside the loop (then
+        each frame is a ``step``)."""
         N = depths.shape[0]
         angles = np.asarray(angles, np.float32)
         renders, masks_g, misses = [], [], []
-        cands = dec = None
+        self.reset_candidates()
         for i in range(0, N, 2 if pair else 1):
-            ovf = None
-            if self.refresh > 1 and i % self.refresh == 0:
-                cands, dec, ovf = self._candidates(state, angles[i], dist,
-                                                   mark)
             if pair:
+                cands, dec, ovf = self._due_candidates(state, angles[i],
+                                                       dist, 2, mark)
                 state, r, mg, miss = fuse_render_pair_step(
                     state, masks[i], depths[i], colors[i], es[i], angles[i],
                     masks[i + 1], depths[i + 1], colors[i + 1], es[i + 1],
                     angles[i + 1], self.intrinsic, dist, self.cfg, self.H,
                     self.W, self.share_shell, self.render_mode, cands, dec,
                     mark)
+                if ovf is not None:
+                    miss = miss + ovf
                 renders += [r[0], r[1]]
                 masks_g += [mg[0], mg[1]]
             else:
                 if masks is None:
-                    mask = self.detect(colors[i], mark)
-                    if mark is not None:
-                        mark("label")
+                    state, r, mg, miss = self.step(
+                        state, depths[i], colors[i], es[i], angles[i], dist,
+                        mark)
                 else:
-                    mask = masks[i]
-                state, r, mg, miss = self._fuse_render(
-                    state, mask, depths[i], colors[i], es[i], angles[i],
-                    dist, cands, dec, mark)
+                    state, r, mg, miss = self._frame(
+                        state, masks[i], depths[i], colors[i], es[i],
+                        angles[i], dist, mark)
                 renders.append(r)
                 masks_g.append(mg)
-            misses.append(miss if ovf is None else miss + ovf)
+            misses.append(miss)
         return (state, torch.stack(renders), torch.stack(masks_g),
                 torch.stack(misses))
 

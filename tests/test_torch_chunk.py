@@ -150,6 +150,7 @@ def test_shell_refresh_amortization(models, seq):
     assert all(r3[i].any() for i in range(4))
 
     # per-call step caches candidates on the same schedule (calls 0, 3)
+    ns3.reset_candidates()
     st = warm.clone()
     for i in range(4):
         st, r, mg, miss = ns3.step(st, depths[i + 1], colors[i + 1],
@@ -166,8 +167,10 @@ def test_shell_refresh_amortization(models, seq):
 
 def test_refresh_overflow_lands_in_the_refresh_frames_miss(models, seq):
     """No silent caps: with a row budget too small, the candidate
-    refresh's overflow shows in the misses of the frames that refresh (and
-    in every per-call miss until the next refresh)."""
+    refresh's overflow shows in the misses of the frames that refresh, in
+    the chunk forms and in per-call ``step`` alike: at refresh 2 the
+    per-call steps from a reset cache equal ``run_chunk`` in state,
+    renders and misses."""
     _, tm, _ = models
     frames, depths, colors, es, angles, dist = seq
     cfg = FusionConfig(vol_dim=VOL, probe_mode="depth", shell_refresh_every=2,
@@ -176,10 +179,20 @@ def test_refresh_overflow_lands_in_the_refresh_frames_miss(models, seq):
     st, _, _, _ = ns.step(_volume(cfg, frames), depths[0], colors[0], es[0],
                           angles[0], dist)
     ns.reset_candidates()
-    _, _, _, misses = ns.run_chunk_batched(st, depths[1:], colors[1:], es[1:],
-                                           angles[1:], dist)
+    _, _, _, misses = ns.run_chunk_batched(st.clone(), depths[1:], colors[1:],
+                                           es[1:], angles[1:], dist)
     m = misses.tolist()
     assert m[0] > 0 and m[2] > 0 and m[1] == 0 and m[3] == 0
+    a, ra, _, mi_a = ns.run_chunk(st.clone(), depths[1:4], colors[1:4],
+                                  es[1:4], angles[1:4], dist)
+    assert mi_a.tolist() == m[:3]
+    ns.reset_candidates()
+    b = st.clone()
+    for i in range(3):
+        b, r, _, miss = ns.step(b, depths[i + 1], colors[i + 1], es[i + 1],
+                                angles[i + 1], dist)
+        assert torch.equal(r, ra[i]) and int(miss) == m[i], i
+    _same_state(a, b)
 
 
 def test_paired_chunk_matches_batched(models, seq):

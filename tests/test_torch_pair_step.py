@@ -30,27 +30,42 @@ from test_torch_fuse_pair import K4, _equal, _frames, _staged, _volume
 torch.set_num_threads(2)
 
 
+def _cfgs(boost):
+    return (JFusionConfig(vol_dim=(64,) * 3, hist_dtype=jnp.uint16,
+                          pallas_rect=(128, 256), probe_mode="depth",
+                          pair_probe_boost=boost),
+            FusionConfig(vol_dim=(64,) * 3, probe_mode="depth",
+                         pair_probe_boost=boost))
+
+
+@pytest.fixture(scope="module")
+def warmed():
+    """(frames staged, JAX blocked state, port volume) after frame 0's
+    single step, shared by both boost cases: the boost only enters the
+    pair step, and the JAX state is immutable (the port's is cloned)."""
+    frames = _frames(5)
+    jcfg, tcfg = _cfgs(True)
+    vol, md = _volume(tcfg, frames)
+    b = init_blocked_from_first_frame(jcfg, frames[0][0], K4, md)
+    st = _staged(frames)
+    b, _, _ = fusion_step_blocked(
+        b, *(jnp.asarray(np.asarray(x)) for x in st[0]), jnp.asarray(K4),
+        jcfg)
+    vol, _, _ = fusion_step(vol, *st[0], K4, tcfg)
+    return st, b, vol
+
+
 @pytest.mark.parametrize("boost", [True, False])
-def test_pair_step_matches_jax_pair_step(boost):
+def test_pair_step_matches_jax_pair_step(warmed, boost):
     """The pair step, associations included, on the fixture of
     tests/test_fuse_pair.py (every object visible from frame 0): relabeled
     masks equal to the JAX pair step's, and to the port's own sequential
     steps."""
-    frames = _frames(5)
-    jcfg = JFusionConfig(vol_dim=(64,) * 3, hist_dtype=jnp.uint16,
-                         pallas_rect=(128, 256), probe_mode="depth",
-                         pair_probe_boost=boost)
-    tcfg = FusionConfig(vol_dim=(64,) * 3, probe_mode="depth",
-                        pair_probe_boost=boost)
-    d0 = frames[0][0]
-    vol, md = _volume(tcfg, frames)
-    b = init_blocked_from_first_frame(jcfg, d0, K4, md)
-    st = _staged(frames)
+    st, b, vol = warmed
+    jcfg, tcfg = _cfgs(boost)
+    vol = vol.clone()
     Kj = jnp.asarray(K4)
     jarg = lambda k: tuple(jnp.asarray(np.asarray(x)) for x in st[k])
-
-    b, _, _ = fusion_step_blocked(b, *jarg(0), Kj, jcfg)
-    vol, _, _ = fusion_step(vol, *st[0], K4, tcfg)
     seq = vol.clone()
 
     jpair = jax.jit(lambda b, f1, f2: fusion_step_pair_blocked_impl(
