@@ -25,7 +25,13 @@
    kernels at the per-frame form's batch of 1 and at the chunk's batch of
    16, every image of a batch compared; the paired fuse kernel also
    against two launches of the single one, the sorted NMS kernel also
-   against the argmax kernel's selection.
+   against the argmax kernel's selection. The argmax NMS kernel also runs
+   the seeded edge cases of ``nms_edge_cases`` (sizes 1 to 8192, ties,
+   IoUs on the threshold, a batch). The fuse kernels' brick classes (skip /
+   free / full) are held against ``brick_classes_plain`` and their shares
+   printed; at 128^3 both fuse kernels also run seeded poses the main path
+   does not reach (camera inside the volume, looking away, grazing, depth
+   with holes).
 5. Stage 2 with the synthetic ground-truth masks at 512^3 (association
    with several ids, then an instance render that must show both
    spheres), and the same at 64^3 on the CPU (plain versions) vs the GPU
@@ -82,6 +88,92 @@ def bound_ms(n_bytes: float, n_flops: float):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def nms_edge_cases():
+    """Seeded edge cases of greedy NMS, numpy only: a list of (name, boxes
+    f32 [B, n, 4], scores f32 [B, n], max_output, iou_threshold,
+    score_threshold). The argmax kernel is held to its plain version on
+    them on the card, and the plain version to the JAX package on the CPU
+    (tests/test_torch_ops.py)."""
+    rng = np.random.default_rng(20)
+    ninf = float("-inf")
+
+    def rand(n, batch=1):
+        yx = rng.uniform(0.0, 0.9, (batch, n, 2))
+        hw = rng.uniform(0.01, 0.3, (batch, n, 2))
+        return (np.concatenate([yx, yx + hw], -1).astype(np.float32),
+                rng.uniform(0, 1, (batch, n)).astype(np.float32))
+
+    cases = []
+    for n, cap in ((1, 4), (31, 8), (33, 8), (1025, 12), (6000, 12),
+                   (8192, 12)):
+        cases.append((f"n={n}", *rand(n), cap, 0.5, ninf))
+    cases.append(("max_output above n", *rand(20), 32, 0.7, ninf))
+    b, s = rand(50)
+    cases.append(("all scores under the threshold", b, s, 8, 0.5, 2.0))
+    b, s = rand(40)
+    cases.append(("all boxes the same", np.broadcast_to(
+        b[:, :1], b.shape).copy(), s, 8, 0.5, ninf))
+    b, s = rand(200)
+    cases.append(("exact score ties", b, np.full_like(s, 0.5), 16, 0.3,
+                  ninf))
+    b, s = rand(1500)
+    s[0, rng.choice(1500, 700, replace=False)] = 0.25
+    s[0, 1024:1040] = s[0, :16]          # ties across a thread's two boxes
+    cases.append(("tied blocks, 1500 boxes", b, s, 24, 0.6, ninf))
+    # pairs (A, B) apart from one another, A scored above B, with
+    # inter / union placed on the threshold and a few ulp to either side:
+    # A = [y, 0, y + 1, 1] and B = [y, 0, y + 1, x] overlap by exactly x of
+    # a union (1 + x) - x
+    for t in (0.5, 0.25, 0.7, 0.3):
+        t32 = np.float32(t)
+        xs = [t32]
+        for _ in range(4):
+            xs = [np.nextafter(xs[0], np.float32(0))] + xs \
+                + [np.nextafter(xs[-1], np.float32(1))]
+        boxes, scores = [], []
+        for k, x in enumerate(xs):
+            off = np.float32(2.0 * k)
+            boxes += [[off, 0, off + 1, 1], [off, 0, off + 1, x]]
+            scores += [1.0 - 0.01 * k, 0.5 - 0.01 * k]
+        # thin boxes at other scales, where the union is not 1
+        for k, (h, w) in enumerate(((3.0, 0.125), (0.3, 7.0), (1e-3, 1e-3))):
+            off = np.float32(100.0 + 10.0 * k)
+            boxes += [[off, 0, off + h, w], [off, 0, off + h,
+                                             w * float(t32)]]
+            scores += [0.4 - 0.01 * k, 0.2 - 0.01 * k]
+        cases.append((f"IoUs on the threshold {t}",
+                      np.asarray(boxes, np.float32)[None],
+                      np.asarray(scores, np.float32)[None], len(boxes),
+                      float(t), ninf))
+    cases.append(("batch of 4", *rand(300, batch=4), 20, 0.4, 0.1))
+    return cases
+
+
+def seeded_poses(vol_start, vol_end, e_default):
+    """Camera poses (extrinsic2init, float32 [4, 4]) that the main path does
+    not reach: inside the volume, looking away from it, and grazing it so
+    that the frustum's faces cut through bricks at an angle."""
+    centre = 0.5 * (np.asarray(vol_start, np.float64)
+                    + np.asarray(vol_end, np.float64))
+
+    def rot_y(deg):
+        a = np.deg2rad(deg)
+        R = np.eye(4)
+        R[0, 0], R[0, 2], R[2, 0], R[2, 2] = (np.cos(a), np.sin(a),
+                                              -np.sin(a), np.cos(a))
+        return R
+
+    inside = np.eye(4)
+    inside[:3, 3] = -centre
+    to_c, back = np.eye(4), np.eye(4)
+    to_c[:3, 3] = -centre
+    back[:3, 3] = centre + np.array([0.1, 0.0, -0.2])
+    poses = {"inside": inside,
+             "away": rot_y(180.0) @ np.asarray(e_default, np.float64),
+             "grazing": back @ rot_y(55.0) @ to_c}
+    return {k: v.astype(np.float32) for k, v in poses.items()}
 
 
 class Recorder:
@@ -416,6 +508,25 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
         log(f"[nms] {name}: batch {s.shape[0]} n={s.shape[1]} cap={cap} "
             f"selected {kv.sum(1).tolist()} -- indices equal in every image")
 
+    # the shared edge cases (also run through the plain version and the
+    # JAX package by the CPU tests), and the size the kernel refuses
+    for name, b, s, cap, thr, sthr in nms_edge_cases():
+        b, s = torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev)
+        ki, kv = nm._nms_cuda(b, s, cap, thr, sthr)
+        for i in range(s.shape[0]):
+            pi, pv = nm.non_max_suppression_plain(b[i], s[i], cap, thr, sthr)
+            check(torch.equal(kv[i], pv) and torch.equal(ki[i], pi),
+                  f"nms edge case {name!r}, image {i}: kernel != plain")
+        log(f"[nms] edge case {name!r}: batch {s.shape[0]} n={s.shape[1]} "
+            f"cap={cap} selected {kv.sum(1).tolist()} -- equal")
+    try:
+        nm._nms_cuda(torch.zeros(1, 8193, 4, device=dev),
+                     torch.zeros(1, 8193, device=dev), 4, 0.5, float("-inf"))
+    except ValueError as e:
+        log(f"[nms] n=8193 raises: {e}")
+    else:
+        raise AssertionError("nms kernel took 8193 boxes")
+
     def time_nms(args):
         """(kernel ms, plain ms, bound ms, bound by, selections) of one
         K2 launch on a captured batch."""
@@ -555,11 +666,42 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
         return (int((vol.weight != w0).sum()),
                 int(vol.hist.sum(dtype=torch.int64) - h0))
 
+    def class_shares(vol, cls_kernel, frames_params, tag):
+        """The kernel's brick classes (one set per frame) against
+        brick_classes_plain, and the share of bricks and of voxels per
+        class. Returns the plain classes."""
+        dims = vol.diff.shape
+        size = [torch.clamp(torch.arange(0, n, b, device=dev) + b, max=n)
+                - torch.arange(0, n, b, device=dev)
+                for n, b in zip(dims, fz.BRICK)]
+        vox = (size[0][:, None, None] * size[1][None, :, None]
+               * size[2][None, None, :])
+        out = []
+        for k, (d, p) in enumerate(frames_params):
+            cls = fz.brick_classes_plain(vol, p, *fz.depth_tiles_plain(d),
+                                         *d.shape)
+            check(torch.equal(cls, cls_kernel[k]),
+                  f"{tag} frame {k}: the kernel's brick classes != plain "
+                  f"({int((cls != cls_kernel[k]).sum())} bricks)")
+            share = {name: (float((cls == c).float().mean()),
+                            float(vox[cls == c].sum() / vox.sum()))
+                     for name, c in (("skip", fz.SKIP), ("free", fz.FREE),
+                                     ("full", fz.FULL))}
+            log(f"[{tag}] frame {k}: " + ", ".join(
+                f"{n} {b:.4f} of the bricks / {v:.4f} of the voxels"
+                for n, (b, v) in share.items())
+                + f" ({cls.numel()} bricks; classes equal to plain)")
+            out.append((cls, share))
+        return out
+
     w0, h0 = state.weight.clone(), state.hist.sum(dtype=torch.int64)
     other = state.clone()
-    fz._fuse_cuda(state, depth, color, mask, params)
+    cls_k = fz._fuse_cuda(state, depth, color, mask, params)
     fz.fuse_frame_plain(other, depth, color, mask, params)
     torch.cuda.synchronize()
+    (_, share1), = class_shares(other, cls_k[None], [(depth, params)], "fuse")
+    check(all(b > 0 for b, _ in share1.values()),
+          f"fuse: a brick class is empty on the main path's frame: {share1}")
     for f in ("weight", "color", "hist"):
         check(torch.equal(getattr(state, f), getattr(other, f)),
               f"fuse {f}: kernel != plain")
@@ -576,7 +718,12 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
     h0 = state.hist.sum(dtype=torch.int64)
     twice = state.clone()
     pair_args = (depth2, color2, mask2, params2, depth, color, mask, params)
-    fz._fuse_pair_cuda(state, *pair_args)
+    cls_k = fz._fuse_pair_cuda(state, *pair_args)
+    for _, share in class_shares(other, cls_k, [(depth2, params2),
+                                                (depth, params)],
+                                 "fuse_pair"):
+        check(all(b > 0 for b, _ in share.values()),
+              f"fuse_pair: a brick class is empty: {share}")
     fz._fuse_cuda(twice, *pair_args[:4])
     fz._fuse_cuda(twice, *pair_args[4:])
     fz.fuse_frames2_plain(other, *pair_args)
@@ -599,6 +746,63 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
         f"gated updates")
     del w0, twice
     torch.cuda.empty_cache()
+
+    # ---- 128^3, poses the main path does not reach, and a depth image
+    # with holes inside otherwise free tiles: kernel against plain, the
+    # kernel's classes against the plain classes, the pair against two
+    # single launches
+    from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
+    cfg_s = FusionConfig(vol_dim=(128,) * 3)
+    warm = fz.init_state(cfg_s, state.vol_start, state.vol_end, device=dev)
+    fz.fuse_frame_plain(warm, depth2, color2, mask2,
+                        fz.fuse_params(warm, e2i2, K4, cfg_s))
+    holes = depth.cpu().numpy().copy()
+    rng = np.random.default_rng(5)
+    holes[rng.integers(0, H, 40), rng.integers(0, W, 40)] = 0
+    holes[H // 2:H // 2 + 4, W // 2:W // 2 + W // 5] = 0
+    holes = torch.from_numpy(holes).to(dev)
+    seeded = [(name, depth, e) for name, e in seeded_poses(
+        state.vol_start, state.vol_end, e2i).items()]
+    seeded.append(("holes", holes, e2i))
+    for name, d, e in seeded:
+        p = fz.fuse_params(warm, e, K4, cfg_s)
+        p2 = fz.fuse_params(warm, e2i2, K4, cfg_s)
+        a, b, c, t2 = (warm.clone() for _ in range(4))
+        cls_k = fz._fuse_cuda(a, d, color, mask, p)
+        fz.fuse_frame_plain(b, d, color, mask, p)
+        (cls, share), = class_shares(b, cls_k[None], [(d, p)],
+                                     f"fuse 128^3 {name}")
+        for f in ("weight", "color", "hist"):
+            check(torch.equal(getattr(a, f), getattr(b, f)),
+                  f"fuse 128^3 {name} {f}: kernel != plain")
+        e_s = float((a.diff - b.diff).abs().max())
+        check(e_s <= 2e-6, f"fuse 128^3 {name} diff err {e_s}")
+        n_upd = int((a.weight != warm.weight).sum())
+        if name == "away":
+            check(n_upd == 0 and share["skip"][0] == 1.0
+                  and torch.equal(a.diff, warm.diff),
+                  "looking away: the state must not change")
+        else:
+            check(n_upd > 0, f"fuse 128^3 {name}: nothing fused")
+        # the pair (this pose, then the main path's next frame)
+        fz._fuse_pair_cuda(c, d, color, mask, p, depth2, color2, mask2, p2)
+        fz._fuse_cuda(t2, d, color, mask, p)
+        fz._fuse_cuda(t2, depth2, color2, mask2, p2)
+        fz.fuse_frame_plain(b, depth2, color2, mask2, p2)
+        torch.cuda.synchronize()
+        for f in ("diff", "weight", "color", "hist"):
+            check(torch.equal(getattr(c, f), getattr(t2, f)),
+                  f"fuse_pair 128^3 {name} {f}: pair != two single launches")
+        for f in ("weight", "color", "hist"):
+            check(torch.equal(getattr(c, f), getattr(b, f)),
+                  f"fuse_pair 128^3 {name} {f}: kernel != plain")
+        e_p = float((c.diff - b.diff).abs().max())
+        check(e_p <= 2e-6, f"fuse_pair 128^3 {name} diff err {e_p}")
+        err, err2 = max(err, e_s), max(err2, e_p)
+        log(f"[fuse] 128^3 {name}: kernel == plain (max |diff| {e_s:.3e}, "
+            f"{n_upd} voxels updated); pair == two singles bit for bit, "
+            f"== plain (max |diff| {e_p:.3e})")
+    del warm, a, b, c, t2
 
     def two_singles():
         fz._fuse_cuda(state, *pair_args[:4])

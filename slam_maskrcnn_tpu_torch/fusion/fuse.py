@@ -14,6 +14,17 @@ need a second 10 GB copy): on CUDA tensors through the kernel of
 csrc/fuse.cu, on CPU tensors through ``fuse_frame_plain``. Both use the
 Pallas kernel's arithmetic (``fuse_params``), so they agree bit for bit.
 
+The kernel works brick by brick (8 x 8 x 32 voxels) and first sorts each
+brick, per frame, into skip (no voxel can fuse), free (every voxel fuses
+with dn == 1: a closed-form update of diff and weight) and full (the dense
+per-voxel update), from the brick's 8 projected corners and the min / max
+of the depth image's 32 x 32 tiles: the JAX package's ``_block_origins``
+pre-classification. ``depth_tiles_plain`` and ``brick_classes_plain`` are
+that classification in torch, with the kernel's arithmetic and the slacks
+of ``brick_slacks``; the dense ``fuse_frame_plain`` knows nothing of the
+classes and is what they are judged against: a brick may be skip or free
+only where the per-voxel arithmetic could not decide otherwise.
+
 ``fuse_frames2`` fuses two frames in one pass over the volume (the JAX
 package's ``fuse_frames2_blocked_impl`` / ``fuse_frames2_blocked_prepped``):
 per voxel frame 1's update, then frame 2's, bit-identical to two
@@ -154,6 +165,135 @@ def fuse_params(vol: TSDFVolume, extrinsic2init, intrinsic,
          cfg.color_diff_gate]]).astype(np.float32)
 
 
+# Brick and depth-tile shape of the fuse kernel: mirrored in csrc/fuse.cu
+# (BRICK_X, BRICK_Y, BRICK_Z, TILE); change both together. The slacks below
+# exist only here: the kernel gets them with each frame's parameters.
+BRICK = (8, 8, 32)
+DEPTH_TILE = 32
+BRICK_PX_SLACK = 2.0    # px added around a brick's projected corner box
+BRICK_Z_SLACK = 1e-4    # metres added around its camera-z range
+SKIP, FULL, FREE = 0, 1, 2
+_EPS32 = float(np.finfo(np.float32).eps)
+
+
+def brick_slacks(params: np.ndarray, dims) -> np.ndarray:
+    """The slacks of the brick classification for one frame, float32 [3]:
+    (z_slack, z_near, px_slack).
+
+    A voxel's camera-space position is three products and three sums in
+    f32, each term at most M = max_r(|base_r| + |ax_r|(X-1) + |ay_r|(Y-1) +
+    |az_r|(Z-1)) in size, so it is off the exact affine value by at most
+    4 eps M. ``z_slack`` (0.1 mm plus 16 eps M) covers that on the z range
+    of a brick's corners. A brick counts as in front of the camera only
+    from ``z_near`` on, chosen so that the projection's error there stays
+    under a quarter pixel for a corner and for a voxel alike; ``px_slack``
+    (2 px) covers both with room to spare."""
+    p = np.asarray(params, np.float64)
+    ext = np.asarray(dims, np.float64) - 1.0
+    M = float(np.max(np.abs(p[9:12]) + np.abs(p[0:3]) * ext[0]
+                     + np.abs(p[3:6]) * ext[1] + np.abs(p[6:9]) * ext[2]))
+    z_slack = BRICK_Z_SLACK + 16.0 * _EPS32 * M
+    z_near = z_slack + 16.0 * float(np.abs(p[12:16]).sum()) * _EPS32 * M
+    return np.array([z_slack, z_near, BRICK_PX_SLACK], np.float32)
+
+
+def depth_tiles_plain(depth: torch.Tensor):
+    """(tile_min, tile_max), int32 [ceil(H/32), ceil(W/32)]: the least and
+    the greatest raw depth of each 32 x 32 tile of the image (an edge tile
+    over the pixels it has). A tile with a hole (a 0) has minimum 0."""
+    T = DEPTH_TILE
+    H, W = depth.shape
+    d = depth.to(torch.int32) & 0xFFFF
+    ph, pw = (-H) % T, (-W) % T
+    th, tw = (H + ph) // T, (W + pw) // T
+    pad = lambda fill: torch.nn.functional.pad(
+        d, (0, pw, 0, ph), value=fill).view(th, T, tw, T)
+    return pad(0xFFFF).amin((1, 3)), pad(0).amax((1, 3))
+
+
+def brick_classes_plain(vol: TSDFVolume, params: np.ndarray,
+                        tile_min: torch.Tensor, tile_max: torch.Tensor,
+                        H: int, W: int) -> torch.Tensor:
+    """The fuse kernel's class of every brick for one frame, int8
+    [nbx, nby, nbz]: SKIP (0), FULL (1), FREE (2). Plain PyTorch version of
+    ``classify_brick`` in csrc/fuse.cu, same arithmetic and order.
+
+    SKIP: all 8 corner voxels behind the camera; or all in front (z >=
+    z_near) and the corners' projected box, widened by px_slack, misses the
+    image; or all in front and even the deepest pixel of the tiles under the
+    box leaves every voxel at depth - z <= -mu. FREE: all in front, the
+    widened box inside the image, no hole in the tiles under it, their
+    nearest pixel at depth - z >= mu for every voxel, and a gate that dn == 1
+    does not pass. FULL: everything else."""
+    X, Y, Z = vol.diff.shape
+    dev = vol.diff.device
+    s = [torch.tensor(float(v), dtype=torch.float32, device=dev)
+         for v in np.concatenate([np.asarray(params, np.float32)[:19],
+                                  brick_slacks(params, (X, Y, Z))])]
+    ax, ay, az, b0 = s[0:3], s[3:6], s[6:9], s[9:12]
+    fx, fy, cx, cy, mu, dscale, gate, z_slack, z_near, px_slack = s[12:22]
+
+    def ends(n, b, shape):
+        lo = torch.arange(0, n, b, device=dev)
+        hi = torch.clamp(lo + (b - 1), max=n - 1)
+        return lo.float().view(shape), hi.float().view(shape)
+
+    xs = ends(X, BRICK[0], (-1, 1, 1))
+    ys = ends(Y, BRICK[1], (1, -1, 1))
+    zs = ends(Z, BRICK[2], (1, 1, -1))
+    inf = torch.tensor(float("inf"), device=dev)
+    zmin, zmax = inf, -inf
+    corners = []
+    for c in range(8):
+        gx, gy, gz = xs[(c >> 2) & 1], ys[(c >> 1) & 1], zs[c & 1]
+        p = [((b0[r] + ax[r] * gx) + ay[r] * gy) + az[r] * gz
+             for r in range(3)]
+        corners.append(p)
+        zmin, zmax = torch.minimum(zmin, p[2]), torch.maximum(zmax, p[2])
+    behind = zmax < -z_slack
+    front = zmin >= z_near
+    umin, umax, vmin, vmax = inf, -inf, inf, -inf
+    for px, py, pz in corners:
+        u = (fx * px + cx * pz) / pz
+        v = (fy * py + cy * pz) / pz
+        umin, umax = torch.minimum(umin, u), torch.maximum(umax, u)
+        vmin, vmax = torch.minimum(vmin, v), torch.maximum(vmax, v)
+    zero = torch.zeros((), device=dev)
+    # boxes of bricks that are not in front are never read: keep them finite
+    ulo, uhi, vlo, vhi = (torch.where(front, a, zero) for a in
+                          (umin - px_slack, umax + px_slack,
+                           vmin - px_slack, vmax + px_slack))
+    miss = (uhi < 0) | (ulo >= W) | (vhi < 0) | (vlo >= H)
+    # the tiles that hold every pixel a voxel of the brick can hit
+    T = DEPTH_TILE
+    th, tw = tile_min.shape
+    tile_of = lambda a: torch.div(a.to(torch.int32), T, rounding_mode="floor")
+    tu0 = tile_of(ulo.clamp(0, W - 1))
+    tu1 = tile_of(uhi.clamp(0, W - 1))
+    tv0 = tile_of(vlo.clamp(0, H - 1))
+    tv1 = tile_of(vhi.clamp(0, H - 1))
+    shape = zmin.shape
+    ti = torch.arange(th, device=dev).view(1, th, 1)
+    tj = torch.arange(tw, device=dev).view(1, 1, tw)
+    cover = ((ti >= tv0.reshape(-1, 1, 1)) & (ti <= tv1.reshape(-1, 1, 1))
+             & (tj >= tu0.reshape(-1, 1, 1)) & (tj <= tu1.reshape(-1, 1, 1)))
+    big = torch.tensor(0xFFFF, dtype=torch.int32, device=dev)
+    small = torch.zeros((), dtype=torch.int32, device=dev)
+    dmin = torch.where(cover, tile_min.to(dev)[None], big) \
+        .amin((1, 2)).view(shape)
+    dmax = torch.where(cover, tile_max.to(dev)[None], small) \
+        .amax((1, 2)).view(shape)
+    occluded = (dmax == 0) | (dmax.float() / dscale - (zmin - z_slack) <= -mu)
+    inside = (ulo >= 0) & (uhi < W) & (vlo >= 0) & (vhi < H)
+    free = (inside & (dmin > 0) & ~(1.0 < gate)
+            & (dmin.float() / dscale - (zmax + z_slack) >= mu))
+    cls = torch.where(free, FREE, FULL)
+    cls = torch.where(miss | occluded, SKIP, cls)
+    cls = torch.where(front, cls, FULL)
+    cls = torch.where(behind, SKIP, cls)
+    return cls.to(torch.int8)
+
+
 def fuse_frame_plain(vol: TSDFVolume, depth: torch.Tensor,
                      color: torch.Tensor, mask: torch.Tensor,
                      params: np.ndarray, slab: int = 32) -> None:
@@ -231,21 +371,45 @@ def _check_volume(vol: TSDFVolume) -> None:
                              "of the TSDFVolume dtypes")
 
 
-def _fuse_cuda(vol: TSDFVolume, depth, color, mask, params) -> None:
+def _kernel_scratch(vol: TSDFVolume, n_frames: int, H: int, W: int,
+                    params) -> tuple:
+    """What a launch of the fuse kernel needs beside the state: per frame
+    the 22 kernel parameters (``fuse_params`` + ``brick_slacks``), the i32
+    scratch of the depth-tile pass and the i8 brick classes it writes."""
+    X, Y, Z = vol.diff.shape
+    if X * Y * Z * 3 >= 2 ** 31:
+        raise ValueError(f"fuse kernel: a volume of {X}x{Y}x{Z} voxels "
+                         "overflows its 32-bit voxel index")
+    T = DEPTH_TILE
+    tiles = torch.empty((n_frames, 2, -(-H // T), -(-W // T)),
+                        dtype=torch.int32, device=vol.device)
+    classes = torch.empty((n_frames,) + tuple(-(-n // b) for n, b in
+                                              zip((X, Y, Z), BRICK)),
+                          dtype=torch.int8, device=vol.device)
+    full = [np.ascontiguousarray(np.concatenate(
+        [np.asarray(p, np.float32), brick_slacks(p, (X, Y, Z))]), np.float32)
+        for p in params]
+    return full, tiles, classes
+
+
+def _fuse_cuda(vol: TSDFVolume, depth, color, mask, params) -> torch.Tensor:
+    """Launch the fuse kernel on one frame. Returns the brick classes the
+    kernel used, int8 [nbx, nby, nbz]."""
     X, Y, Z = vol.diff.shape
     K = vol.hist.shape[-1]
     H, W = depth.shape
     _check_volume(vol)
     depth, color, mask = _frame_for_kernel(vol, depth, color, mask)
-    p = np.ascontiguousarray(params, np.float32)
+    (p,), tiles, classes = _kernel_scratch(vol, 1, H, W, [params])
     fn = kernels.lib("fuse").fuse_frame_cuda
     kernels.launches.add("fuse")
     err = fn(kernels.ptr(vol.diff), kernels.ptr(vol.color),
              kernels.ptr(vol.weight), kernels.ptr(vol.hist), X, Y, Z, K,
              kernels.ptr(depth), kernels.ptr(color), kernels.ptr(mask), H, W,
-             p.ctypes.data_as(ctypes.c_void_p),
-             kernels.stream_ptr(vol.device))
+             p.ctypes.data_as(ctypes.c_void_p), kernels.ptr(tiles),
+             kernels.ptr(classes), kernels.stream_ptr(vol.device))
     kernels.check(err, "fuse kernel")
+    return classes[0]
 
 
 def fuse_frames2_plain(vol: TSDFVolume, depth1, color1, mask1, params1,
@@ -257,7 +421,9 @@ def fuse_frames2_plain(vol: TSDFVolume, depth1, color1, mask1, params1,
 
 
 def _fuse_pair_cuda(vol: TSDFVolume, depth1, color1, mask1, params1,
-                    depth2, color2, mask2, params2) -> None:
+                    depth2, color2, mask2, params2) -> torch.Tensor:
+    """Launch the paired fuse kernel. Returns the brick classes the kernel
+    used for the two frames, int8 [2, nbx, nby, nbz]."""
     X, Y, Z = vol.diff.shape
     K = vol.hist.shape[-1]
     H, W = depth1.shape
@@ -266,8 +432,8 @@ def _fuse_pair_cuda(vol: TSDFVolume, depth1, color1, mask1, params1,
     _check_volume(vol)
     depth1, color1, mask1 = _frame_for_kernel(vol, depth1, color1, mask1)
     depth2, color2, mask2 = _frame_for_kernel(vol, depth2, color2, mask2)
-    p1 = np.ascontiguousarray(params1, np.float32)
-    p2 = np.ascontiguousarray(params2, np.float32)
+    (p1, p2), tiles, classes = _kernel_scratch(vol, 2, H, W,
+                                               [params1, params2])
     fn = kernels.lib("fuse").fuse_frames2_cuda
     kernels.launches.add("fuse_pair")
     err = fn(kernels.ptr(vol.diff), kernels.ptr(vol.color),
@@ -275,9 +441,10 @@ def _fuse_pair_cuda(vol: TSDFVolume, depth1, color1, mask1, params1,
              kernels.ptr(depth1), kernels.ptr(color1), kernels.ptr(mask1),
              p1.ctypes.data_as(ctypes.c_void_p),
              kernels.ptr(depth2), kernels.ptr(color2), kernels.ptr(mask2),
-             p2.ctypes.data_as(ctypes.c_void_p), H, W,
-             kernels.stream_ptr(vol.device))
+             p2.ctypes.data_as(ctypes.c_void_p), H, W, kernels.ptr(tiles),
+             kernels.ptr(classes), kernels.stream_ptr(vol.device))
     kernels.check(err, "paired fuse kernel")
+    return classes
 
 
 def fuse_frame(vol: TSDFVolume, depth: torch.Tensor, color: torch.Tensor,

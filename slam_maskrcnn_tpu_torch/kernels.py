@@ -36,10 +36,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # as c_void_p: a bare Python int would be cut to 32 bits)
 _SIGNATURES = {
     "fuse": {"fuse_frame_cuda": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                 _P, _P, _P, _I, _I, _P, _P],
+                                 _P, _P, _P, _I, _I, _P, _P, _P, _P],
              "fuse_frames2_cuda": [_P, _P, _P, _P, _I, _I, _I, _I,
                                    _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _P]},
+                                   _I, _I, _P, _P, _P]},
     "nms": {"nms_cuda": [_P, _P, _I, _I, _I, _F, _F, _P, _P, _P]},
     "nms_sorted": {"nms_sorted_cuda": [_P, _I, _I, _F, _P, _P, _P]},
     "roi_align": {"roi_align_cuda": [_I, _P, _P, _P, _P, _P, _P, _I, _I,

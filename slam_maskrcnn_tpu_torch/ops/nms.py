@@ -3,9 +3,10 @@
 Port of slam_maskrcnn_tpu/ops/nms.py. ``non_max_suppression`` returns
 exactly ``max_output`` indices plus a validity mask, in selection order
 (the reference's pad-to-count contract, model.py:328-333). On a CUDA tensor
-it launches the kernel of csrc/nms.cu (one thread block per image); on a
-CPU tensor it runs ``non_max_suppression_plain``, the same algorithm as a
-fixed-trip loop of tensor ops.
+it launches the kernel of csrc/nms.cu (one thread block per image, the
+boxes in its threads' registers, so at most ``NMS_MAX_N`` boxes an image:
+more raises); on a CPU tensor it runs ``non_max_suppression_plain``, the
+same algorithm as a fixed-trip loop of tensor ops.
 
 ``variant="sorted"`` (the JAX package's ``_nms_pallas_sorted_jit``) gives
 the same selection another way: a stable sort by descending score, the
@@ -24,6 +25,16 @@ from slam_maskrcnn_tpu_torch.device import on_cuda
 from slam_maskrcnn_tpu_torch.ops.boxes import compute_iou_matrix
 
 NEG_INF = -1e9
+# csrc/nms.cu keeps 1 to 8 boxes in each of its 1024 threads (NMS_MAX_N
+# there)
+NMS_MAX_N = 8192
+
+
+def check_nms_size(n: int) -> None:
+    """Raise if the argmax kernel cannot take ``n`` boxes an image."""
+    if n > NMS_MAX_N:
+        raise ValueError(f"nms kernel takes at most {NMS_MAX_N} boxes an "
+                         f"image, got {n}")
 
 
 def non_max_suppression_plain(boxes: torch.Tensor, scores: torch.Tensor,
@@ -63,7 +74,10 @@ def _nms_cuda(boxes, scores, max_output, iou_threshold, score_threshold):
         raise ValueError(f"boxes [{B}, {n}, 4] on the scores' device "
                          f"expected, got {tuple(boxes.shape)} on "
                          f"{boxes.device}")
+    check_nms_size(n)
     boxes = boxes.contiguous()
+    if boxes.data_ptr() % 16:            # the kernel reads a box as a float4
+        boxes = boxes.clone()
     scores = scores.contiguous()
     idx = torch.empty(B, max_output, dtype=torch.int32, device=boxes.device)
     valid = torch.empty(B, max_output, dtype=torch.uint8, device=boxes.device)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import nms_edge_cases
 from slam_maskrcnn_tpu.ops import boxes as jboxes
 from slam_maskrcnn_tpu.ops.nms import non_max_suppression as j_nms
 from slam_maskrcnn_tpu.ops.pallas.nms_kernel import (
@@ -18,7 +19,8 @@ from slam_maskrcnn_tpu.ops.roi_align import pyramid_roi_align as j_roi
 from slam_maskrcnn_tpu.ops.roi_align import roi_level as j_level
 from slam_maskrcnn_tpu_torch.ops import boxes as tboxes
 from slam_maskrcnn_tpu_torch.ops.nms import (
-    nms_sorted_suppression_plain, non_max_suppression as t_nms)
+    NMS_MAX_N, check_nms_size, nms_sorted_suppression_plain,
+    non_max_suppression as t_nms)
 from slam_maskrcnn_tpu_torch.ops.roi_align import pyramid_roi_align as t_roi
 from slam_maskrcnn_tpu_torch.samples.north_star import resize_bilinear
 
@@ -73,6 +75,46 @@ def test_nms_batched_equals_per_image():
         i, v = t_nms(torch.from_numpy(b[k]), torch.from_numpy(s[k]), 30, 0.5)
         np.testing.assert_array_equal(bi[k].numpy(), i.numpy())
         np.testing.assert_array_equal(bv[k].numpy(), v.numpy())
+
+
+_EDGE_CASES = nms_edge_cases()
+
+
+@pytest.mark.parametrize("case", _EDGE_CASES,
+                         ids=[c[0].replace(" ", "_") for c in _EDGE_CASES])
+def test_nms_edge_cases_match_jax(case):
+    """The seeded edge cases that the argmax kernel is held to on the card
+    (chip_smoke.py: sizes 1 to 8192, max_output above n, nothing over the
+    score threshold, identical boxes, exact score ties, IoUs exactly on the
+    threshold and a few ulp beside it, a batch): here the plain version
+    against the JAX package, indices and validity equal in every image."""
+    name, boxes, scores, cap, thr, sthr = case
+    ti, tv = t_nms(torch.from_numpy(boxes), torch.from_numpy(scores), cap,
+                   thr, sthr)
+    assert ti.shape == tv.shape == (boxes.shape[0], cap)
+    for i in range(boxes.shape[0]):
+        ji, jv = j_nms(jnp.asarray(boxes[i]), jnp.asarray(scores[i]), cap,
+                       thr, sthr)
+        np.testing.assert_array_equal(np.asarray(jv), tv[i].numpy(), name)
+        np.testing.assert_array_equal(np.asarray(ji), ti[i].numpy(), name)
+    if "under the threshold" in name:
+        assert int(tv.sum()) == 0
+    elif "the same" in name:
+        assert int(tv.sum()) == 1
+    elif "on the threshold" in name:
+        # of the 9 pairs placed around the threshold some are kept and
+        # some are suppressed
+        assert boxes.shape[1] - 9 < int(tv.sum()) < boxes.shape[1]
+
+
+def test_nms_kernel_size_limit():
+    """The argmax kernel keeps every box in a register of one block: the
+    wrapper's check takes 8192 boxes an image and refuses 8193."""
+    assert NMS_MAX_N == 8192
+    check_nms_size(1)
+    check_nms_size(NMS_MAX_N)
+    with pytest.raises(ValueError, match="8192"):
+        check_nms_size(NMS_MAX_N + 1)
 
 
 @pytest.mark.parametrize("n,cap,thr,sthr", [
