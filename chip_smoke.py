@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from csrc/ (nvcc, sm_90a, one process per
-   source) and prints the build time.
+   source) and prints the build time and every kernel's registers,
+   spills and shared memory from the -Xptxas=-v log.
 2. Main path, per-frame form: the north-star step (NorthStar.step: detect
    -> label -> depth probe -> associate -> fuse, render mode "none") at
    full width: ResNet-101 FPN Mask R-CNN with 81 classes and seeded random
@@ -14,24 +15,29 @@
    which must be 2 (NMS), 2 (ROIAlign) and 1 (fuse) per frame.
 3. Main path, chunk form: NorthStar.run_chunk_paired over 16 frames with
    the in-loop render (mode "instance", candidates refreshed every 4
-   frames) on the same model and volume: one batched detect, 8 launches of
-   the paired fuse kernel, 16 renders. Prints the same metrics with the
+   frames) on the same model and volume: one batched detect (2 NMS and 2
+   ROIAlign launches for the 16 frames), 8 launches of the paired fuse
+   kernel, 16 renders. Prints the same metrics with the
    candidate refresh and the render as stages, checks the launch counts,
    the state, the misses and a color-mode view of the final volume, and
    holds run_chunk_paired against run_chunk_batched at 64^3.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (inputs captured from the main path, plus seeded
    inputs where the main path's are degenerate) and times both; the NMS
-   kernels at the per-frame form's batch of 1 and at the chunk's batch of
-   16, every image of a batch compared; the paired fuse kernel also
-   against two launches of the single one, the sorted NMS kernel also
-   against the argmax kernel's selection. The argmax NMS kernel also runs
-   the seeded edge cases of ``nms_edge_cases`` (sizes 1 to 8192, ties,
-   IoUs on the threshold, a batch). The fuse kernels' brick classes (skip /
-   free / full) are held against ``brick_classes_plain`` and their shares
-   printed; at 128^3 both fuse kernels also run seeded poses the main path
-   does not reach (camera inside the volume, looking away, grazing, depth
-   with holes).
+   and ROIAlign kernels at the per-frame form's batch of 1 and at the
+   chunk's batch of 16, every image of a batch compared (ROIAlign at pool 7
+   and 14, on bf16 features and their f32 upcast); the paired fuse kernel
+   also against two launches of the single one, the sorted NMS kernel also
+   against the argmax kernel's selection. Both NMS kernels also run the
+   seeded edge cases of ``nms_edge_cases`` (sizes 1 to 8192, ties, IoUs on
+   the threshold, a batch). ROIAlign and the sorted NMS kernel are timed
+   on the device with their launches queued behind a spin kernel
+   (``device_ms``), since their wrappers' host time may exceed the
+   kernel's; their rows also carry the time through the wrapper. The
+   fuse kernels' brick classes (skip / free / full) are held against
+   ``brick_classes_plain`` and their shares printed; at 128^3 both fuse
+   kernels also run seeded poses the main path does not reach (camera
+   inside the volume, looking away, grazing, depth with holes).
 5. Stage 2 with the synthetic ground-truth masks at 512^3 (association
    with several ids, then an instance render that must show both
    spheres), and the same at 64^3 on the CPU (plain versions) vs the GPU
@@ -39,8 +45,10 @@
 
 Prints the card's name and power limit, one {"kernels": [...]} line (a
 row's "launches" is the total of "launches_by_path", the counts of the two
-forms of the main path, each counted from 0; the NMS rows' times are at
-the chunk's batch, with the batch-1 times beside them), and
+forms of the main path, each counted from 0; the NMS and ROIAlign rows'
+times are at the chunk's batch, with the batch-1 times beside them; the
+ROIAlign row's main times are the pool-7 head's, the pool-14 head's under
+"pool14"), and
 as the last line {"ok": true, "device": {...}}. Any failed check raises,
 so the exit code is not 0. Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
@@ -77,6 +85,49 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds a call of ``fn``: the calls are queued behind a
+    spin kernel, so they run back to back whatever the host's time per
+    call (a wrapper's ~0.1 ms hides a kernel faster than that from
+    ``cuda_time_ms``). Raises if the host took longer to queue them than
+    the spin lasted."""
+    import torch
+    fn()
+    start, end, spin0 = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    torch.cuda.synchronize()
+    spin0.record()
+    torch.cuda._sleep(50_000_000)        # ~25-30 ms at the H100's clocks
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    check(spin0.elapsed_time(start) > host_ms,
+          f"device_ms: queueing took {host_ms:.3f} ms, longer than the spin")
+    return start.elapsed_time(end) / reps
+
+
+def ptxas_lines(log: str):
+    """(kernel, registers, spill bytes, stack bytes, shared bytes) of every
+    entry function in an nvcc -Xptxas=-v log."""
+    import re
+    out = []
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        stack = re.search(r"(\d+) bytes stack frame", part)
+        smem = re.search(r"(\d+) bytes smem", part)
+        out.append((name, int(regs.group(1)) if regs else -1,
+                    int(spill.group(1)) if spill else -1,
+                    int(stack.group(1)) if stack else -1,
+                    int(smem.group(1)) if smem else 0))
+    return out
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -179,8 +230,11 @@ def seeded_poses(vol_start, vol_end, e_default):
 class Recorder:
     """Keeps a copy of the first inputs each kernel wrapper sees per
     shape key on the main path (for the kernel-vs-plain phase). The NMS
-    key holds the batch size: the per-frame form launches it at batch 1,
-    the chunk form at the chunk's batch."""
+    and ROIAlign keys hold the batch size: the per-frame form launches
+    them at batch 1, the chunk form at the chunk's batch. The ROIAlign
+    pyramids wait in host memory (``roi_inputs`` brings them back), so
+    that the chunk's (0.5 GB a head) do not count in the main path's peak
+    device memory."""
 
     def __init__(self):
         import slam_maskrcnn_tpu_torch.ops.nms as nms_mod
@@ -196,14 +250,20 @@ class Recorder:
             return orig_nms(boxes, scores, max_output, thr, sthr)
 
         def roi(features, boxes, pool, image_shape):
-            key = ("roi_align", pool)
+            key = ("roi_align", pool, boxes.shape[0])
             if key not in self.seen:
-                self.seen[key] = (tuple(f.contiguous().clone()
-                                        for f in features),
+                self.seen[key] = (tuple(f.to("cpu") for f in features),
                                   boxes.clone(), pool, image_shape)
             return orig_roi(features, boxes, pool, image_shape)
 
         nms_mod._nms_cuda, roi_mod._roi_align_cuda = nms, roi
+
+    def roi_inputs(self, pool, batch):
+        """(features, boxes, pool, image_shape) of the first ROIAlign launch
+        at this pool size and batch, the features back on the boxes'
+        device."""
+        feats, boxes, p, shape = self.seen[("roi_align", pool, batch)]
+        return tuple(f.to(boxes.device) for f in feats), boxes, p, shape
 
 
 class StageClock:
@@ -357,9 +417,9 @@ def chunk_path(dev, model, state, staged, K4, dist):
     log(f"[chunk] {N_CHUNK} frames in {wall:.3f} s = {fps:.2f} fps, peak "
         f"memory {peak:.2f} GiB, launches {launches}, misses {n_miss}")
     # one batched detect: one NMS launch for the proposals and one for the
-    # detections of all frames, ROIAlign per frame and head; one paired
-    # fuse per two frames
-    check(launches == {"nms": 2, "roi_align": 2 * N_CHUNK, "fuse": 0,
+    # detections of all frames, one ROIAlign launch per head for all
+    # frames; one paired fuse per two frames
+    check(launches == {"nms": 2, "roi_align": 2, "fuse": 0,
                        "fuse_pair": N_CHUNK // 2, "nms_sorted": 0},
           f"chunk launch counts {launches}")
     check(state.n_obs == n_obs0 + N_CHUNK and n_miss == 0,
@@ -461,6 +521,41 @@ def profile_run(fn, n_frames: int, unit: str):
             f"{unit}, calls):")
         for e in top:
             log(f"[profile]   {key(e) / 1e3:9.3f}  {e.count:6d}  {e.key[:90]}")
+
+
+def roi_read_bytes(feats, boxes, pool, image_shape) -> int:
+    """Bytes of the distinct feature cells that PyramidROIAlign reads for
+    these rois (the corners of every sample inside its level), over all
+    images: what a kernel must read at least once."""
+    import torch
+    from slam_maskrcnn_tpu_torch.ops import roi_align as ra
+    total = 0
+    k = torch.arange(pool, dtype=torch.float32, device=boxes.device)
+    for b in range(boxes.shape[0]):
+        lvl = ra.roi_level(boxes[b], image_shape)
+        for li, f in enumerate(feats):
+            bx = boxes[b][lvl == li + 2]
+            H, W = f.shape[1:3]
+            corners, inside = [], []
+            for lo, hi, size in ((bx[:, 0], bx[:, 2], H),
+                                 (bx[:, 1], bx[:, 3], W)):
+                if pool > 1:
+                    s = (lo[:, None] * (size - 1) + k[None, :]
+                         * ra._div((hi - lo) * (size - 1), pool - 1)[:, None])
+                else:
+                    s = (0.5 * (lo + hi) * (size - 1))[:, None]
+                i0 = torch.floor(s).clamp(-2, size + 1).long()
+                corners.append(torch.stack([i0.clamp(0, size - 1),
+                                            (i0 + 1).clamp(0, size - 1)], -1))
+                inside.append((s >= 0) & (s <= size - 1))
+            (ys, xs), (vy, vx) = corners, inside
+            cell = (ys[:, :, None, :, None] * W
+                    + xs[:, None, :, None, :])            # [R, P, P, 2, 2]
+            ok = (vy[:, :, None] & vx[:, None, :])[..., None, None]
+            seen = torch.zeros(H * W, dtype=torch.bool, device=boxes.device)
+            seen[cell[ok.expand_as(cell)]] = True
+            total += int(seen.sum()) * f.shape[-1] * f.element_size()
+    return total
 
 
 def kernel_phase(dev, state, staged, rec, cfg, K4):
@@ -585,11 +680,32 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
             f"suppressed {k_sup.sum(1).tolist()} -- mask equal in every "
             f"image, selection equal to argmax")
 
+    # the shared edge cases: the mask against its plain version in every
+    # image, the selection against the argmax kernel's (ties, IoUs on the
+    # threshold and a few ulp beside it, which the kernels decide by a band)
+    for name, b, s, cap, thr, sthr in nms_edge_cases():
+        b, s = torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev)
+        bs = sort_boxes(b, s, sthr)
+        k_sup = nm._nms_sorted_cuda(bs, thr)
+        for i in range(s.shape[0]):
+            check(torch.equal(k_sup[i], nm.nms_sorted_suppression_plain(
+                bs[i], thr)), f"nms_sorted edge case {name!r}, image {i}: "
+                              f"kernel != plain")
+        si, sv = nm.non_max_suppression(b, s, cap, thr, sthr,
+                                        variant="sorted")
+        ai, av = nm._nms_cuda(b, s, cap, thr, sthr)
+        check(torch.equal(si, ai) and torch.equal(sv, av),
+              f"nms_sorted edge case {name!r}: selection != argmax kernel's")
+        log(f"[nms_sorted] edge case {name!r}: batch {s.shape[0]} "
+            f"n={s.shape[1]} suppressed {k_sup.sum(1).tolist()} -- mask "
+            f"equal, selection equal to argmax")
+
     def time_nms_sorted(args):
         b, s, cap, thr, sthr = args
         B, n = s.shape
         bs = sort_boxes(b, s, sthr)
-        t_k = cuda_time_ms(lambda: nm._nms_sorted_cuda(bs, thr), 20)
+        t_k = device_ms(lambda: nm._nms_sorted_cuda(bs, thr))
+        t_w = cuda_time_ms(lambda: nm._nms_sorted_cuda(bs, thr), 20)
         t_p = cuda_time_ms(lambda: [nm.nms_sorted_suppression_plain(
             bs[i], thr) for i in range(B)], 1, warmup=0)
         t_var = cuda_time_ms(lambda: nm.non_max_suppression(
@@ -597,11 +713,11 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
         # bytes: sorted boxes in, the mask out; operations: one IoU (~12
         # flops) for each pair i < j
         bms, by = bound_ms(B * (n * 16 + n), B * n * (n - 1) / 2 * 12)
-        return t_k, t_p, t_var, bms, by
+        return t_k, t_w, t_p, t_var, bms, by
 
-    t_k4, t_p4, t_var, bms, by = time_nms_sorted(
+    t_k4, t_w4, t_p4, t_var, bms, by = time_nms_sorted(
         rec.seen[("nms", 1000, N_CHUNK)])
-    t_k41, t_p41, t_var1, bms1, by1 = time_nms_sorted(
+    t_k41, t_w41, t_p41, t_var1, bms1, by1 = time_nms_sorted(
         rec.seen[("nms", 1000, 1)])
     rows["nms_sorted"] = dict(
         name="nms_sorted", route="cuda",
@@ -609,47 +725,77 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
         replaces="slam_maskrcnn_tpu/ops/pallas/nms_kernel.py:82",
         max_abs_err=float(err), ms=t_k4, plain_ms=t_p4, bound_ms=bms,
         bound_by=by, library_ms=None, batch=N_CHUNK, batch1_ms=t_k41,
-        batch1_plain_ms=t_p41, batch1_bound_ms=bms1)
-    log(f"[nms_sorted] proposals at batch {N_CHUNK}: kernel {t_k4:.3f} ms, "
-        f"plain {t_p4:.3f} ms, bound {bms:.5f} ms ({by}); the whole variant "
-        f"(sort, kernel, cut) {t_var:.3f} ms against {t_k:.3f} ms of the "
-        f"argmax kernel")
-    log(f"[nms_sorted] proposals at batch 1: kernel {t_k41:.3f} ms, plain "
-        f"{t_p41:.3f} ms, bound {bms1:.5f} ms ({by1}); the whole variant "
-        f"{t_var1:.3f} ms against {t_k1:.3f} ms of the argmax kernel")
+        batch1_plain_ms=t_p41, batch1_bound_ms=bms1, wrapper_ms=t_w4,
+        batch1_wrapper_ms=t_w41)
+    log(f"[nms_sorted] proposals at batch {N_CHUNK}: kernel {t_k4:.4f} ms "
+        f"(device; {t_w4:.4f} through the wrapper), plain {t_p4:.3f} ms, "
+        f"bound {bms:.5f} ms ({by}); the whole variant (sort, kernel, cut) "
+        f"{t_var:.3f} ms against {t_k:.3f} ms of the argmax kernel")
+    log(f"[nms_sorted] proposals at batch 1: kernel {t_k41:.4f} ms (device; "
+        f"{t_w41:.4f} through the wrapper), plain {t_p41:.3f} ms, bound "
+        f"{bms1:.5f} ms ({by1}); the whole variant {t_var1:.3f} ms against "
+        f"{t_k1:.3f} ms of the argmax kernel")
 
-    # ---- K3 PyramidROIAlign: 1000 boxes at pool 7 and 32 at pool 14 on
-    # the main path's bf16 pyramid; also fed f32 features
+    # ---- K3 PyramidROIAlign: 1000 boxes at pool 7 and 32 at pool 14, at
+    # batch 1 (the step) and the chunk's batch (one launch per head), on
+    # the main path's bf16 pyramids and on their f32 upcast: every image
+    # against the plain version
     err = 0.0
     for pool in (7, 14):
-        feats, boxes, p, shape = rec.seen[("roi_align", pool)]
-        for f in (feats, tuple(x.float() for x in feats)):
-            k = ra._roi_align_cuda(f, boxes, p, shape)
-            pl = ra.pyramid_roi_align_plain(f, boxes, p, shape)
-            torch.cuda.synchronize()
-            e = float((k - pl).abs().max())
-            check(e <= 1e-4, f"roi_align pool {pool} {f[0].dtype}: err {e}")
-            err = max(err, e)
-            log(f"[roi_align] pool {pool} {f[0].dtype} n={boxes.shape[0]}: "
-                f"max |kernel - plain| {e:.3e}")
-    feats, boxes, p, shape = rec.seen[("roi_align", 7)]
-    t_k = cuda_time_ms(lambda: ra._roi_align_cuda(feats, boxes, p, shape), 20)
-    t_p = cuda_time_ms(
-        lambda: ra.pyramid_roi_align_plain(feats, boxes, p, shape), 3)
-    C = feats[0].shape[-1]
-    n_out = boxes.shape[0] * p * p * C
-    in_bytes = sum(f.numel() * f.element_size() for f in feats)
-    # bytes: every level read once + boxes + f32 output; operations: 4
-    # corner reads blended with ~11 flops per output element
-    bms, by = bound_ms(in_bytes + boxes.numel() * 4 + n_out * 4, n_out * 11)
+        for batch in (1, N_CHUNK):
+            feats, boxes, p, shape = rec.roi_inputs(pool, batch)
+            for f in (feats, tuple(x.float() for x in feats)):
+                k = ra._roi_align_cuda(f, boxes, p, shape)
+                pl = ra.pyramid_roi_align_plain(f, boxes, p, shape)
+                torch.cuda.synchronize()
+                per = [float((k[i] - pl[i]).abs().max())
+                       for i in range(batch)]
+                n_ne = int((k != pl).sum())
+                check(max(per) <= 1e-4, f"roi_align pool {pool} batch "
+                      f"{batch} {f[0].dtype}: errors {per}")
+                err = max(err, max(per))
+                log(f"[roi_align] pool {pool} batch {batch} {f[0].dtype} "
+                    f"n={boxes.shape[1]}: max |kernel - plain| {max(per):.3e} "
+                    f"over {batch} images, {n_ne} of {k.numel()} elements "
+                    f"differ")
+            del k, pl
+
+    def time_roi(pool, batch):
+        """(kernel ms, through-the-wrapper ms, plain ms, bound ms, bound by)
+        of one launch on a captured batch."""
+        feats, boxes, p, shape = rec.roi_inputs(pool, batch)
+        t_k = device_ms(lambda: ra._roi_align_cuda(feats, boxes, p, shape))
+        t_w = cuda_time_ms(lambda: ra._roi_align_cuda(feats, boxes, p,
+                                                      shape), 20)
+        t_p = cuda_time_ms(lambda: ra.pyramid_roi_align_plain(
+            feats, boxes, p, shape), 2)
+        n_out = boxes.shape[0] * boxes.shape[1] * p * p * feats[0].shape[-1]
+        # bytes: the feature cells this run's rois read (each once) + boxes
+        # + the f32 output; operations: ~11 flops per output element
+        bms, by = bound_ms(roi_read_bytes(feats, boxes, p, shape)
+                           + boxes.numel() * 4 + n_out * 4, n_out * 11)
+        return t_k, t_w, t_p, bms, by
+
+    times = {(pool, batch): time_roi(pool, batch)
+             for pool in (7, 14) for batch in (1, N_CHUNK)}
+    for (pool, batch), (t_k, t_w, t_p, bms, by) in times.items():
+        log(f"[roi_align] pool {pool} batch {batch}: kernel {t_k:.4f} ms "
+            f"(device; {t_w:.4f} through the wrapper), plain {t_p:.3f} ms, "
+            f"bound {bms:.5f} ms ({by})")
+    (t_k, t_w, t_p, bms, by), (t_k1, t_w1, t_p1, bms1, _) = (
+        times[(7, N_CHUNK)], times[(7, 1)])
     rows["roi_align"] = dict(
         name="roi_align", route="cuda",
         source="slam_maskrcnn_tpu_torch/csrc/roi_align.cu",
         replaces="slam_maskrcnn_tpu/ops/pallas/roi_align_kernel.py:61",
         max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bms, bound_by=by,
-        library_ms=None)
-    log(f"[roi_align] pool 7 x {boxes.shape[0]}: kernel {t_k:.3f} ms, plain "
-        f"{t_p:.3f} ms, bound {bms:.5f} ms ({by})")
+        library_ms=None, batch=N_CHUNK, batch1_ms=t_k1, batch1_plain_ms=t_p1,
+        batch1_bound_ms=bms1, wrapper_ms=t_w, batch1_wrapper_ms=t_w1,
+        pool14={f"batch{b}": dict(zip(("ms", "wrapper_ms", "plain_ms",
+                                        "bound_ms", "bound_by"),
+                                       times[(14, b)]))
+                for b in (1, N_CHUNK)})
+    del times
 
     # ---- K1 fuse and K1-pair at 512^3 on the main path's state: the next
     # frames with a mask. Checks first (three copies of the volume), then
@@ -944,10 +1090,16 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     t0 = time.time()
-    kernels.build_all(verbose=True)
+    build_logs = {}
+    kernels.build_all(logs=build_logs)
     for name in kernels.SOURCES:
         kernels.lib(name)
     log(f"[build] {len(kernels.SOURCES)} kernels in {time.time() - t0:.1f} s")
+    for src, text in build_logs.items():
+        for name, regs, spill, stack, smem in ptxas_lines(text):
+            log(f"[build] {src}.cu {name}: {regs} registers, {spill} bytes "
+                f"spilled, {stack} bytes of stack, {smem} bytes of static "
+                f"shared memory")
 
     (state, frames, staged, ms, fps, peak, launches, rec, cfg, K4, model,
      dist) = main_path(dev)

@@ -53,6 +53,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "iou.cuh"
+
 #define NMS_THREADS 1024
 #define NMS_WARPS (NMS_THREADS / 32)
 #define NMS_MAX_N 8192
@@ -70,19 +72,6 @@ __device__ __forceinline__ unsigned score_key(float s) {
   return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-// iou > t for iou = inter / max(uni, 1e-10f), decided without the division
-// unless the quotient lies within a few ulp of t: t_hi and t_lo are t widened
-// by 8 ulp either way (+inf and -inf for a threshold too small for the band
-// to be safe: then every pair divides, as does any pair with a NaN). Nearly
-// every pair leaves at the first compare: a box is suppressed once in its
-// life at most.
-__device__ __forceinline__ bool iou_above(float inter, float uni, float t,
-                                          float t_hi, float t_lo) {
-  const float u = fmaxf(uni, 1e-10f);
-  if (__builtin_expect(inter < t_lo * u, 1)) return false;
-  return inter > t_hi * u || inter / u > t;
-}
-
 template <int BPT>
 __global__ void __launch_bounds__(NMS_THREADS)
     nms_kernel(const float4* __restrict__ boxes,
@@ -98,9 +87,7 @@ __global__ void __launch_bounds__(NMS_THREADS)
   int32_t* io = idx_out + (long long)b * max_output;
   uint8_t* vo = valid_out + (long long)b * max_output;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool banded = iou_threshold >= 1e-6f;
-  const float t_hi = banded ? iou_threshold * 1.000001f : INFINITY;
-  const float t_lo = banded ? iou_threshold * 0.999999f : -INFINITY;
+  const IouBand band = iou_band(iou_threshold);
 
   float4 box[BPT];
   float area[BPT];
@@ -165,11 +152,8 @@ __global__ void __launch_bounds__(NMS_THREADS)
 #pragma unroll
     for (int s = 0; s < BPT; ++s) {
       if ((live >> s) & 1u) {
-        const float iy1 = fmaxf(w.x, box[s].x), ix1 = fmaxf(w.y, box[s].y);
-        const float iy2 = fminf(w.z, box[s].z), ix2 = fminf(w.w, box[s].w);
-        const float inter = fmaxf(iy2 - iy1, 0.f) * fmaxf(ix2 - ix1, 0.f);
-        if (iou_above(inter, warea + area[s] - inter, iou_threshold, t_hi,
-                      t_lo)) {
+        const float inter = box_inter(w, box[s]);
+        if (iou_above(inter, warea + area[s] - inter, band)) {
           live &= ~(1u << s);
         } else if (key[s] > best_k) {
           best_k = key[s];

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` into
 ``build/kernels/<name>-<hash>.so`` at the repository root (a plain C
-interface, loaded with ``ctypes``). All sources are compiled in parallel
+interface, loaded with ``ctypes``); the hash covers the source, the flags
+and the shared headers ``csrc/*.cuh``. All sources are compiled in parallel
 on first use; a library whose source and flags are unchanged is reused.
 Nothing here runs when the package is imported: the CPU tests import
 every module on a machine without ``nvcc``.
@@ -41,9 +42,11 @@ _SIGNATURES = {
                                    _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _P, _P, _P]},
     "nms": {"nms_cuda": [_P, _P, _I, _I, _I, _F, _F, _P, _P, _P]},
-    "nms_sorted": {"nms_sorted_cuda": [_P, _I, _I, _F, _P, _P, _P]},
+    "nms_sorted": {"nms_sorted_cuda": [_P, _I, _I, _F, _P, _P, _P],
+                   "nms_sorted_pairs_cuda": [_P, _I, _I, _F, _P, _P],
+                   "nms_sorted_scan_cuda": [_I, _I, _P, _P, _P]},
     "roi_align": {"roi_align_cuda": [_I, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _F, _P, _P]},
+                                     _I, _I, _F, _P, _P]},
 }
 
 _lock = threading.Lock()
@@ -64,14 +67,21 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the flags and
+    every header under csrc/ (a source may include any of them)."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
-def build_all(verbose: bool = False) -> dict[str, str]:
+def build_all(logs: dict | None = None) -> dict[str, str]:
     """Compile every source that has no up-to-date library, one nvcc per
-    source, all started together. Returns {name: library path}."""
+    source, all started together. Returns {name: library path}. With a
+    ``logs`` dict, nvcc runs with -Xptxas=-v (registers, spills and shared
+    memory of every kernel) and its output is stored there by source."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     targets = {n: _target(n) for n in SOURCES}
     procs = {}
@@ -81,7 +91,7 @@ def build_all(verbose: bool = False) -> dict[str, str]:
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
                os.path.join(CSRC, name + ".cu")]
-        if verbose:
+        if logs is not None:
             cmd.insert(1, "-Xptxas=-v")
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -92,8 +102,8 @@ def build_all(verbose: bool = False) -> dict[str, str]:
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu ---\n{log}")
             continue
-        if verbose and log.strip():
-            print(f"[nvcc {name}.cu]\n{log.strip()}")
+        if logs is not None:
+            logs[name] = log
         os.replace(tmp, out)  # atomic: a concurrent build never sees a part
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

@@ -71,12 +71,11 @@ class MaskRCNNModule(nn.Module):
         return tuple(torch.cat([o[i] for o in outs], dim=1) for i in range(3))
 
     def _roi_align(self, feats, boxes, pool):
-        """PyramidROIAlign per image (one kernel launch each) on NHWC views
-        of the NCHW levels."""
-        return torch.stack([
-            pyramid_roi_align(tuple(f[b].permute(1, 2, 0) for f in feats),
-                              boxes[b], pool, self.image_shape)
-            for b in range(boxes.shape[0])])
+        """PyramidROIAlign of the whole batch (one kernel launch) on NHWC
+        views of the NCHW levels, which are contiguous: the levels live in
+        channels-last memory. Returns f32 [B, N, pool, pool, C]."""
+        return pyramid_roi_align(tuple(f.permute(0, 2, 3, 1) for f in feats),
+                                 boxes, pool, self.image_shape)
 
     @torch.no_grad()
     def forward(self, images, anchors, windows):

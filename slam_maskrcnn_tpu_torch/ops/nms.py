@@ -114,8 +114,15 @@ def _nms_sorted_cuda(boxes: torch.Tensor,
                          f"[B, n, 4], got {boxes.dtype} "
                          f"{tuple(boxes.shape)} on {boxes.device}")
     boxes = boxes.contiguous()
+    if boxes.data_ptr() % 16:            # the kernel reads a box as a float4
+        boxes = boxes.clone()
     B, n = boxes.shape[:2]
+    if B > 65535:
+        raise ValueError(f"sorted nms kernel takes at most 65535 images, "
+                         f"got {B}")
     nw = (n + 63) // 64
+    # the pair bit matrix; the kernel writes (and the scan reads) only the
+    # words of column chunks at or after each row's own chunk
     bits = torch.empty(B, n, nw, dtype=torch.int64, device=boxes.device)
     sup = torch.empty(B, n, dtype=torch.uint8, device=boxes.device)
     fn = kernels.lib("nms_sorted").nms_sorted_cuda

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the redesigned fuse and NMS kernels of the PyTorch port spend
-their time, on one NVIDIA GPU.
+"""Where the redesigned kernels of the PyTorch port spend their time, on
+one NVIDIA GPU.
 
     python3 -m slam_maskrcnn_tpu_torch.samples.kernel_probe
 
@@ -23,7 +23,16 @@ that):
   1024 boxes with a threshold nothing exceeds (one box a thread: what a
   selection costs beside the IoU tests), 6000 such boxes, 6000 seeded
   boxes at the proposal threshold, and a batch of 16 sets of 6000 boxes
-  drawn around 40 centres, where most boxes die early.
+  drawn around 40 centres, where most boxes die early;
+- sorted NMS on the same two sets of boxes sorted by score, at batch 1
+  and 16: its pair-matrix kernel and its scan kernel timed apart (their C
+  entry points launched directly), and both through the wrapper;
+- ROIAlign at the model's pyramid shapes (768 x 1024 molded, C = 256,
+  seeded features and boxes), bf16 and f32 features, pool 7 (1000 rois)
+  and pool 14 (32 rois), batch 1 and 16, against its byte bound.
+
+The sorted NMS and ROIAlign times are device times: the launches are
+queued behind a spin kernel (chip_smoke.device_ms).
 
 Prints the card's name and power limit, then one line per measurement.
 """
@@ -127,6 +136,63 @@ def main() -> int:
         print(f"[nms] {name}: {ms:.4f} ms, {ms * 1e3 / int(sel.max()):.3f} us "
               f"a selection ({int(sel.min())}-{int(sel.max())} selections an "
               f"image)", flush=True)
+
+    # ---- sorted NMS: the pair matrix and the scan apart, on the same
+    # boxes sorted by score, at batch 1 and 16
+    order = torch.sort(s, dim=1, descending=True, stable=True)[1]
+    lib = kernels.lib("nms_sorted")
+    for name, bb in (("6000 seeded boxes", b), ("6000 boxes around 40 "
+                                                "centres", bo)):
+        bs = torch.gather(bb, 1, order[..., None].expand(-1, -1, 4))
+        for B in (1, 16):
+            x = bs[:B].contiguous()
+            n = x.shape[1]
+            bits = torch.empty(B, n, (n + 63) // 64, dtype=torch.int64,
+                               device=dev)
+            sup = torch.empty(B, n, dtype=torch.uint8, device=dev)
+            st = kernels.stream_ptr(x.device)
+            pairs = lambda: lib.nms_sorted_pairs_cuda(P(x), B, n, 0.7,
+                                                      P(bits), st)
+            scan = lambda: lib.nms_sorted_scan_cuda(B, n, P(bits), P(sup), st)
+            kernels.check(pairs(), "pair kernel")
+            kernels.check(scan(), "scan kernel")
+            check = nm._nms_sorted_cuda(x, 0.7)
+            assert torch.equal(check, sup), "probe's sup != the wrapper's"
+            t_pair, t_scan = cs.device_ms(pairs), cs.device_ms(scan)
+            t_all = cs.device_ms(lambda: nm._nms_sorted_cuda(x, 0.7))
+            kept = n - sup.sum(1)
+            print(f"[nms_sorted] {name}, IoU 0.7, batch {B}: pair matrix "
+                  f"{t_pair:.4f} ms ({B * n * (n - 1) // 2} IoUs), scan "
+                  f"{t_scan:.4f} ms ({(n + 63) // 64} chunks, "
+                  f"{int(kept.min())}-{int(kept.max())} kept an image), "
+                  f"both through the wrapper {t_all:.4f} ms", flush=True)
+
+    # ---- ROIAlign: the model's pyramid at 768 x 1024 (P2..P5, C = 256),
+    # seeded features, proposal-like boxes; both heads, batch 1 and 16
+    from slam_maskrcnn_tpu_torch.ops import roi_align as ra
+    shape = (768, 1024)
+    for dtype in (torch.bfloat16, torch.float32):
+        feats = tuple(torch.randn(16, shape[0] // k, shape[1] // k, 256,
+                                  generator=g).to(dev, dtype)
+                      for k in (4, 8, 16, 32))
+        for n, pool in ((1000, 7), (32, 14)):
+            yx = torch.rand(16, n, 2, generator=g) * 0.9
+            hw = torch.rand(16, n, 2, generator=g) * 0.3 + 0.01
+            boxes = torch.cat([yx, yx + hw], -1).to(dev)
+            for B in (1, 16):
+                f = tuple(x[:B] for x in feats)
+                bx = boxes[:B].contiguous()
+                ms = cs.device_ms(lambda: ra._roi_align_cuda(f, bx, pool,
+                                                              shape))
+                read = cs.roi_read_bytes(f, bx, pool, shape)
+                out = B * n * pool * pool * 256 * 4
+                bms, _ = cs.bound_ms(read + bx.numel() * 4 + out, 0)
+                print(f"[roi_align] {dtype}, pool {pool}, {n} rois, batch "
+                      f"{B}: {ms:.4f} ms, bound {bms:.5f} ms (bytes: "
+                      f"{read / 1e6:.1f} MB of cells read, {out / 1e6:.1f} MB "
+                      f"written), {(read + out) / ms / 1e9:.2f} TB/s",
+                      flush=True)
+        del feats
     return 0
 
 
