@@ -65,6 +65,9 @@ H, W = 480, 640
 VOL = (512, 512, 512)
 N_FRAMES = 8                    # per-frame form
 N_CHUNK = 16                    # chunk form
+PIPE_VOL = 256                  # the drivers' default volume
+PIPE_FRAMES = 8                 # the synthetic TUM sequence
+PIPE_K = (520.9, 521.0, 325.1, 249.7)   # fx, fy, cx, cy (kernel.cpp:39)
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 
@@ -139,6 +142,33 @@ def bound_ms(n_bytes: float, n_flops: float):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def match_detections(rois_a, cls_a, sc_a, rois_b, cls_b, sc_b,
+                     iou_thr=0.9):
+    """Greedy same-class box matching of detection set a against b (as
+    tools/parity_gate.py holds the TPU's detections to the CPU's): each of
+    a's boxes takes the unused b box of its class with the highest IoU
+    above ``iou_thr``. Returns (matched, mean |score a - score b|)."""
+    used, mads = set(), []
+    for i in range(len(rois_a)):
+        best, best_iou = -1, iou_thr
+        for j in range(len(rois_b)):
+            if j in used or cls_a[i] != cls_b[j]:
+                continue
+            ya1, xa1, ya2, xa2 = (float(v) for v in rois_a[i])
+            yb1, xb1, yb2, xb2 = (float(v) for v in rois_b[j])
+            inter = (max(0.0, min(ya2, yb2) - max(ya1, yb1))
+                     * max(0.0, min(xa2, xb2) - max(xa1, xb1)))
+            union = ((ya2 - ya1) * (xa2 - xa1) + (yb2 - yb1) * (xb2 - xb1)
+                     - inter)
+            iou = inter / union if union > 0 else 0.0
+            if iou > best_iou:
+                best, best_iou = j, iou
+        if best >= 0:
+            used.add(best)
+            mads.append(abs(float(sc_a[i]) - float(sc_b[best])))
+    return len(mads), float(np.mean(mads)) if mads else 0.0
 
 
 def nms_edge_cases():
@@ -488,7 +518,7 @@ def profile_run(fn, n_frames: int, unit: str):
     """torch.profiler over one more call of ``fn`` (after the counted run),
     which covers ``n_frames`` frames: the device's busy share of the wall
     time, launches per frame, and the top ops by device and by host self
-    time."""
+    time. Returns the busy share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -521,6 +551,7 @@ def profile_run(fn, n_frames: int, unit: str):
             f"{unit}, calls):")
         for e in top:
             log(f"[profile]   {key(e) / 1e3:9.3f}  {e.count:6d}  {e.key[:90]}")
+    return busy / wall_us
 
 
 def roi_read_bytes(feats, boxes, pool, image_shape) -> int:
@@ -1065,6 +1096,338 @@ def stage2_phase(dev):
         "weight, hist, masks, instance and color renders, probe)")
 
 
+def _copy(a):
+    """A deep copy of a wrapper's arguments: tensors and volumes cloned,
+    tuples walked, the rest as it is."""
+    if isinstance(a, tuple):
+        return tuple(_copy(x) for x in a)
+    return a.clone() if hasattr(a, "clone") else a
+
+
+class FirstCalls:
+    """Keeps a copy of the inputs of the ``nth`` launch of each kernel
+    wrapper on the pipeline phase's paths (NMS, ROIAlign, the fuse
+    kernel), so each can be held against its plain version at those shapes
+    after the counted runs. The fuse capture clones the volume before the
+    launch updates it in place."""
+
+    def __init__(self, nth: int = 3):
+        import slam_maskrcnn_tpu_torch.fusion.fuse as fz
+        import slam_maskrcnn_tpu_torch.ops.nms as nms_mod
+        import slam_maskrcnn_tpu_torch.ops.roi_align as roi_mod
+        self.seen, self.n = {}, {}
+        mods = {"nms": (nms_mod, "_nms_cuda"),
+                "roi_align": (roi_mod, "_roi_align_cuda"),
+                "fuse": (fz, "_fuse_cuda")}
+        self.restore = []
+        for key, (mod, attr) in mods.items():
+            orig = getattr(mod, attr)
+            self.restore.append((mod, attr, orig))
+
+            def wrap(*args, _key=key, _orig=orig):
+                sub = (_key, args[2]) if _key == "roi_align" else _key
+                self.n[sub] = self.n.get(sub, 0) + 1
+                if self.n[sub] == nth:
+                    self.seen[sub] = _copy(args)
+                return _orig(*args)
+            setattr(mod, attr, wrap)
+
+    def close(self):
+        for mod, attr, orig in self.restore:
+            setattr(mod, attr, orig)
+
+
+def write_tum(root, frames, masks=True, base_ts=1311868164.0):
+    """A TUM RGB-D sequence on disk with the port's PNG codec: rgb/ (the
+    BGR frames), depth/ (u16), mask/ (the ground-truth labels) and
+    groundtruth.txt (camera-to-world poses; the synthetic extrinsics are
+    translations)."""
+    import os
+    from slam_maskrcnn_tpu_torch.data.png import write_png
+    for d in ("rgb", "depth") + (("mask",) if masks else ()):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    lines = []
+    for i, fr in enumerate(frames):
+        name = f"{base_ts + 0.05 * i:.6f}.png"
+        write_png(os.path.join(root, "rgb", name), fr["color"])
+        write_png(os.path.join(root, "depth", name), fr["depth"])
+        if masks:
+            write_png(os.path.join(root, "mask", name), fr["mask"])
+        E = np.asarray(fr["extrinsic"], np.float64)
+        check(np.array_equal(E[:3, :3], np.eye(3)), "translation-only poses")
+        t = [repr(float(-v)) for v in E[:3, 3]]
+        lines.append(f"{base_ts + 0.05 * i:.6f} {' '.join(t)} 0.0 0.0 0.0 "
+                     "1.0")
+    with open(os.path.join(root, "groundtruth.txt"), "w") as f:
+        f.write("# timestamp tx ty tz qx qy qz qw\n" + "\n".join(lines)
+                + "\n")
+
+
+def pipeline_phase(dev):
+    """Phase 6: the trained detector and the two-stage pipeline through
+    the user's entry points. Returns (launches per path, rows of the
+    kernel checks at the pipeline's shapes, summary)."""
+    import os
+    import shutil
+    import torch
+    from slam_maskrcnn_tpu_torch import kernels
+    from slam_maskrcnn_tpu_torch.data.synthetic import (default_scene,
+                                                        make_sequence)
+    from slam_maskrcnn_tpu_torch.data.png import read_png
+    from slam_maskrcnn_tpu_torch.data.tum import TUMSequence
+    from slam_maskrcnn_tpu_torch.eval.metrics import compute_ap
+    from slam_maskrcnn_tpu_torch.fusion import fuse as fz
+    from slam_maskrcnn_tpu_torch.fusion.checkpoint import (load_volume,
+                                                           save_volume)
+    from slam_maskrcnn_tpu_torch.fusion.pipeline import SemanticFusion
+    from slam_maskrcnn_tpu_torch.fusion.state import (FusionConfig,
+                                                      make_intrinsic)
+    from slam_maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from slam_maskrcnn_tpu_torch.ops import nms as nm
+    from slam_maskrcnn_tpu_torch.ops import roi_align as ra
+    from slam_maskrcnn_tpu_torch.samples import fusion_demo, mask_process
+    from slam_maskrcnn_tpu_torch.samples.coco import CocoInferenceConfig
+    from slam_maskrcnn_tpu_torch.samples.live_pipeline import LivePipeline
+    from slam_maskrcnn_tpu_torch.samples.train_shapes import (
+        InferenceShapesConfig, detect_scenes, evaluate_map)
+
+    t_phase = time.time()
+    here = os.path.dirname(os.path.abspath(__file__))
+    trained = os.path.join(here, "weights", "shapes_r2_f16.h5")
+    work = os.path.join(here, "build", "pipeline")
+    shutil.rmtree(work, ignore_errors=True)
+    by_path, summary = {}, {}
+    first = FirstCalls()
+
+    def counted(path, fn):
+        torch.cuda.synchronize()
+        kernels.launches.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[path] = dict(kernels.launches.counts)
+        return out
+
+    # ---- 1. the trained detector: strict load, the 20 committed scenes in
+    # bf16 (the default), mAP@50 against their ground truth
+    scenes = detect_scenes()
+    t0 = time.time()
+    model = MaskRCNN("inference", InferenceShapesConfig(), device=dev)
+    model.load_weights(trained)
+    log(f"[pipeline] strict load of {os.path.basename(trained)} in "
+        f"{time.time() - t0:.2f} s")
+    model.detect([scenes[0][0]])                          # warm-up
+
+    def detect_all(m):
+        t = time.time()
+        res = [m.detect([s[0]])[0] for s in scenes]
+        return res, (time.time() - t) * 1e3 / len(scenes)
+    res, ms_img = counted("detect", lambda: detect_all(model))
+    m_ap = evaluate_map(model, scenes, results=res)
+    n_det = sum(len(r["rois"]) for r in res)
+    log(f"[pipeline] trained detect bf16: mAP@50 {m_ap:.4f} over "
+        f"{len(scenes)} scenes ({n_det} detections), {ms_img:.2f} ms per "
+        f"image, launches {by_path['detect']}")
+    check(m_ap >= 0.62, f"trained bf16 mAP@50 {m_ap} < 0.62")
+    summary["detect_bf16"] = dict(map50=m_ap, ms_per_image=ms_img,
+                                  detections=n_det)
+    summary["detect_bf16"]["busy"] = profile_run(
+        lambda: detect_all(model), len(scenes), "trained image")
+
+    # f32 with TF32 left on by the caller: the model turns it off itself
+    class F32(InferenceShapesConfig):
+        COMPUTE_DTYPE = "float32"
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    m32 = MaskRCNN("inference", F32(), device=dev).load_weights(trained)
+    m32.detect([scenes[0][0]])
+    r32, ms32 = detect_all(m32)
+    torch.backends.cudnn.allow_tf32 = saved
+    check(torch.backends.cudnn.allow_tf32 == saved, "TF32 flag restored")
+    # the CPU plain path (~2-3 s an image) on every other scene: each size
+    # and the stretched ones, in half the time
+    t0 = time.time()
+    cpu = MaskRCNN("inference", F32(), device="cpu").load_weights(trained)
+    rcpu = [cpu.detect([s[0]])[0] for s in scenes[::2]]
+    t_cpu = time.time() - t0
+    n_cpu = sum(len(r["rois"]) for r in rcpu)
+    matched = mad_sum = 0
+    for a, b in zip(rcpu, r32[::2]):
+        k, mad = match_detections(a["rois"], a["class_ids"], a["scores"],
+                                  b["rois"], b["class_ids"], b["scores"],
+                                  iou_thr=0.9)
+        matched, mad_sum = matched + k, mad_sum + mad * k
+    frac = matched / max(n_cpu, 1)
+    m_ap32 = evaluate_map(m32, scenes, results=r32)
+    m_apc = evaluate_map(cpu, scenes[::2], results=rcpu)
+    log(f"[pipeline] trained detect f32 (TF32 off): mAP@50 {m_ap32:.4f} on "
+        f"the card over the 20 scenes, {m_apc:.4f} on the CPU (plain "
+        f"versions, the 10 even scenes, {t_cpu:.1f} s); box match at IoU 0.9 "
+        f"{matched}/{n_cpu} = {frac:.4f} of the CPU detections, score MAD "
+        f"{mad_sum / max(matched, 1):.5f}; {ms32:.2f} ms per image")
+    check(frac >= 0.9, f"f32 card vs plain box match {frac}")
+    summary["detect_f32"] = dict(map50=m_ap32, map50_cpu_even=m_apc,
+                                 box_match=frac, score_mad=mad_sum
+                                 / max(matched, 1), ms_per_image=ms32)
+    del m32, cpu
+
+    # ---- 2. stage 1 -> stage 2 on disk: a synthetic TUM sequence, masks by
+    # mask_process (COCO, ResNet-101 at 1024^2, seed-0 weights), then
+    # fusion_demo on a copy holding the ground-truth masks
+    K4 = make_intrinsic(*PIPE_K)
+    frames = make_sequence(default_scene(), K4, H, W, n_frames=PIPE_FRAMES)
+    n_fused = PIPE_FRAMES - 1
+    seq_gt = os.path.join(work, "seq_gt")
+    seq_s1 = os.path.join(work, "seq_stage1")
+    write_tum(seq_gt, frames)
+    write_tum(seq_s1, frames, masks=False)
+    t0 = time.time()
+    n = counted("mask_process", lambda: mask_process.main(
+        ["--rgb", os.path.join(seq_s1, "rgb"),
+         "--out", os.path.join(seq_s1, "mask"), "--device", dev]))
+    t_s1 = time.time() - t0
+    written = sorted(os.listdir(os.path.join(seq_s1, "mask")))
+    check(n == PIPE_FRAMES and len(written) == PIPE_FRAMES,
+          f"stage 1 wrote {written}")
+    for f in written:
+        m = read_png(os.path.join(seq_s1, "mask", f))
+        check(m.dtype == np.uint8 and m.shape == (H, W), f"mask {f}")
+    log(f"[pipeline] stage 1 (mask_process, COCO ResNet-101 at 1024^2, "
+        f"seed-0 weights): {n} u8 mask PNGs in {t_s1:.2f} s "
+        f"({t_s1 * 1e3 / n:.1f} ms per frame incl. PNG I/O), launches "
+        f"{by_path['mask_process']}")
+    summary["stage1_ms_per_frame"] = t_s1 * 1e3 / n
+
+    cfg = FusionConfig(vol_dim=(PIPE_VOL,) * 3)
+    orbit_dir = os.path.join(work, "orbit")
+    t0 = time.time()
+    fusion, views = counted("fusion_demo", lambda: fusion_demo.run(
+        seq_gt, vol_dim=PIPE_VOL, device=dev, intrinsics=PIPE_K,
+        orbit_frames=4, save_dir=orbit_dir, verbose=False))
+    t_demo = time.time() - t0
+    # the same frames from memory: the fusion alone, timed
+    mem = SemanticFusion(K4, cfg, device=dev)
+    mem.parse_frame(frames[0]["depth"], frames[0]["color"],
+                    frames[0]["mask"], frames[0]["extrinsic"],
+                    frames[0]["mean_depth"])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for fr in frames[1:]:
+        mem.parse_frame(fr["depth"], fr["color"], fr["mask"],
+                        fr["extrinsic"], fr["mean_depth"])
+    torch.cuda.synchronize()
+    fps_fuse = n_fused / (time.time() - t0)
+    for f in ("diff", "color", "weight", "hist"):
+        check(torch.equal(getattr(fusion.state, f), getattr(mem.state, f)),
+              f"fusion_demo from disk != SemanticFusion from memory: {f}")
+    check(fusion.state.n_obs == mem.state.n_obs == n_fused
+          and int(fusion.state.num_objs) == int(mem.state.num_objs) == 3,
+          "fusion_demo n_obs / num_objs")
+    pngs = sorted(os.listdir(orbit_dir))
+    lit = [float((v.max(-1) > 0).mean()) for v in views]
+    check(len(pngs) == 4 and min(lit) > 0.01, f"orbit {pngs} {lit}")
+    for f, v in zip(pngs, views):
+        check(np.array_equal(read_png(os.path.join(orbit_dir, f)),
+                             v[:, :, ::-1]), f"orbit PNG {f}")
+    log(f"[pipeline] fusion_demo {PIPE_VOL}^3: {PIPE_FRAMES} frames "
+        f"({n_fused} fused) + 4 orbit views in {t_demo:.2f} s incl. PNG I/O, "
+        f"state bit-equal to SemanticFusion fed from memory, which fuses "
+        f"{fps_fuse:.2f} frames/s; instance views light "
+        f"{[round(x, 4) for x in lit]} of the pixels; launches "
+        f"{by_path['fusion_demo']}")
+    summary.update(fusion_demo_s=t_demo, fusion_fps=fps_fuse)
+
+    # the volume checkpoint: save, load, bit-equal; one more frame fused
+    # into both stays equal
+    t0 = time.time()
+    path = save_volume(os.path.join(work, "vol.npz"), fusion.state, cfg)
+    back = load_volume(path, cfg, device=dev)
+    t_ckpt = time.time() - t0
+    for f in ("diff", "color", "weight", "hist", "num_objs"):
+        check(torch.equal(getattr(back, f), getattr(fusion.state, f)),
+              f"checkpoint round trip {f}")
+    check(back.n_obs == fusion.state.n_obs, "checkpoint n_obs")
+    twin = SemanticFusion(K4, cfg, device=dev)
+    twin.state, twin.init_extrinsic_inv = back, fusion.init_extrinsic_inv
+    twin.mean_depth = fusion.mean_depth
+    extra = frames[2]
+    for sf in (fusion, twin):
+        sf.parse_frame(extra["depth"], extra["color"], extra["mask"],
+                       extra["extrinsic"], extra["mean_depth"])
+    for f in ("diff", "color", "weight", "hist", "num_objs"):
+        check(torch.equal(getattr(back, f), getattr(fusion.state, f)),
+              f"after one more frame: restored != original ({f})")
+    log(f"[pipeline] checkpoint {os.path.getsize(path) / 2 ** 20:.1f} MiB "
+        f"saved and loaded in {t_ckpt:.2f} s: bit-equal, and equal again "
+        f"after one more fused frame")
+    del fusion, mem, twin, back
+    torch.cuda.empty_cache()
+
+    # ---- 3. live: detect -> label -> fuse on the COCO model, the device
+    # path over the 8 frames, the host path (depth filter) over 3
+    coco = MaskRCNN("inference", CocoInferenceConfig(), device=dev)
+    coco.init_params(0)
+    live = LivePipeline(coco, K4, cfg, use_depth_filter=False)
+    fps_dev = counted("live_device", lambda: live.run_device(
+        TUMSequence(seq_gt), verbose=False))
+    check(live.frames_done == PIPE_FRAMES
+          and live.fusion.state.n_obs == n_fused, "run_device frames")
+    summary["live_device_busy"] = profile_run(
+        lambda: LivePipeline(coco, K4, cfg, use_depth_filter=False)
+        .run_device(TUMSequence(seq_gt), verbose=False), PIPE_FRAMES,
+        "live frame")
+    host = LivePipeline(coco, K4, cfg, use_depth_filter=True)
+    fps_host = counted("live_host", lambda: host.run(
+        TUMSequence(seq_gt, max_frames=3), verbose=False))
+    check(host.frames_done == 3 and host.fusion.state.n_obs == 2,
+          "run frames")
+    log(f"[pipeline] live: run_device {fps_dev:.2f} fused frames/s "
+        f"({PIPE_FRAMES} frames, steady after 3), launches {by_path['live_device']}; run "
+        f"(host path, depth filter) {fps_host:.2f} fused frames/s (3 "
+        f"frames), launches {by_path['live_host']}")
+    summary.update(live_device_fps=fps_dev,
+                   live_host_fps=fps_host, checkpoint_s=t_ckpt)
+    del live, host, coco
+    first.close()
+
+    # ---- the kernels at the pipeline's shapes against their plain
+    # versions (the third launch of each)
+    checks = {}
+    b, s, cap, thr, sthr = first.seen["nms"]
+    ki, kv = nm._nms_cuda(b, s, cap, thr, sthr)
+    for i in range(s.shape[0]):
+        pi, pv = nm.non_max_suppression_plain(b[i], s[i], cap, thr, sthr)
+        check(torch.equal(ki[i], pi) and torch.equal(kv[i], pv),
+              "pipeline nms: kernel != plain")
+    checks["nms"] = dict(max_abs_err=0.0, n=int(s.shape[1]), cap=cap)
+    err = 0.0
+    for pool in (7, 14):
+        feats, boxes, p, shape = first.seen[("roi_align", pool)]
+        k = ra._roi_align_cuda(feats, boxes, p, shape)
+        pl = ra.pyramid_roi_align_plain(feats, boxes, p, shape)
+        err = max(err, float((k - pl).abs().max()))
+    check(err <= 1e-4, f"pipeline roi_align err {err}")
+    checks["roi_align"] = dict(max_abs_err=err)
+    vol, depth, color, mask, params = first.seen["fuse"]
+    other = vol.clone()
+    fz._fuse_cuda(vol, depth, color, mask, params)
+    fz.fuse_frame_plain(other, depth, color, mask, params)
+    for f in ("weight", "color", "hist"):
+        check(torch.equal(getattr(vol, f), getattr(other, f)),
+              f"pipeline fuse {f}: kernel != plain")
+    err = float((vol.diff - other.diff).abs().max())
+    check(err <= 2e-6, f"pipeline fuse diff err {err}")
+    checks["fuse"] = dict(max_abs_err=err, vol=tuple(vol.diff.shape))
+    log(f"[pipeline] kernels at the pipeline's shapes: nms (n="
+        f"{checks['nms']['n']} -> {cap}) equal, roi_align (pool 7 and 14) "
+        f"max err {checks['roi_align']['max_abs_err']:.3e}, fuse {PIPE_VOL}^3 "
+        f"weight/color/hist equal, max |diff| {err:.3e}")
+    del vol, other, first
+    torch.cuda.empty_cache()
+    summary["seconds"] = time.time() - t_phase
+    log(f"[pipeline] phase took {summary['seconds']:.1f} s")
+    return by_path, checks, summary
+
+
 def main() -> int:
     try:
         import torch
@@ -1089,7 +1452,7 @@ def main() -> int:
     log(smi)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
-    t0 = time.time()
+    t_start = t0 = time.time()
     build_logs = {}
     kernels.build_all(logs=build_logs)
     for name in kernels.SOURCES:
@@ -1109,13 +1472,21 @@ def main() -> int:
     del state, model
     torch.cuda.empty_cache()
     stage2_phase(dev)
+    p_paths, p_checks, p_summary = pipeline_phase(dev)
+    for k, c in p_checks.items():
+        rows[k]["pipeline_max_abs_err"] = c["max_abs_err"]
 
-    # launches: each form of the main path was counted from 0 on its own
-    # (launches_by_path); "launches" is their total. Every kernel of a
-    # form's path must have launched in that form's run.
-    by_path = {"step": launches, "paired_chunk": c_launches}
+    # launches: each path was counted from 0 on its own (launches_by_path);
+    # "launches" is their total. Every kernel of a path must have launched
+    # in that path's run.
+    by_path = {"step": launches, "paired_chunk": c_launches, **p_paths}
     on_path = {"step": ("fuse", "nms", "roi_align"),
-               "paired_chunk": ("fuse_pair", "nms", "roi_align")}
+               "paired_chunk": ("fuse_pair", "nms", "roi_align"),
+               "detect": ("nms", "roi_align"),
+               "mask_process": ("nms", "roi_align"),
+               "fusion_demo": ("fuse",),
+               "live_device": ("fuse", "nms", "roi_align"),
+               "live_host": ("fuse", "nms", "roi_align")}
     for path, names in on_path.items():
         check(all(by_path[path][k] > 0 for k in names),
               f"a kernel of the {path} path was never launched: "
@@ -1130,6 +1501,9 @@ def main() -> int:
                          "peak_gib": c_peak, "frames": N_CHUNK,
                          "launches": c_launches},
         "card": smi}}))
+    log(json.dumps({"pipeline": dict(p_summary, launches=p_paths,
+                                     card=smi)}))
+    log(f"[total] {time.time() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [rows[k] for k in (
         "fuse", "fuse_pair", "nms", "nms_sorted", "roi_align")]}))

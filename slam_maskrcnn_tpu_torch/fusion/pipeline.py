@@ -156,13 +156,27 @@ def fuse_pair_sequence(vol: TSDFVolume, depths, colors, masks,
     return vol, torch.stack(out), torch.stack(misses)
 
 
+def _tensor(a, dev) -> torch.Tensor:
+    """A frame array (numpy, or a tensor already staged) on ``dev``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev)
+    return torch.from_numpy(np.asarray(a)).to(dev)
+
+
 class SemanticFusion:
     """Host-side owner of the volume (the reference's ``TSDF`` class +
-    ``kernel.cpp`` glue). Frames are numpy arrays; the volume lives on
-    ``device``."""
+    ``kernel.cpp`` glue). Frames are numpy arrays or tensors already on
+    ``device``; the volume lives on ``device``. The one fuse path is the
+    kernel's (the JAX package's "pallas" backend).
+
+    miss_check_every: read the step's miss count (budget overflow of the
+    splat probe: surface it did not see) back every N fused frames, a
+    device -> host sync, so not every frame. Misses found go to
+    ``on_miss(frame_idx, misses)`` if given, else ``warnings.warn``, and
+    add up in ``total_misses``. 0 disables."""
 
     def __init__(self, intrinsic: np.ndarray, cfg: FusionConfig | None = None,
-                 device="cuda"):
+                 device="cuda", miss_check_every: int = 8, on_miss=None):
         self.device = resolve_device(device)
         self.cfg = cfg or FusionConfig()
         K = np.asarray(intrinsic, np.float32)
@@ -171,23 +185,31 @@ class SemanticFusion:
             K4[:3, :3] = K
             K = K4
         self.intrinsic = K
+        self.intrinsic_inv = np.linalg.inv(K).astype(np.float32)
+        self.miss_check_every = miss_check_every
+        self.on_miss = on_miss
+        self.total_misses = 0
+        self._frame_idx = 0
         self.state: TSDFVolume | None = None
         self.init_extrinsic_inv: np.ndarray | None = None
         self.mean_depth: float | None = None
         self.last_misses: torch.Tensor | None = None
 
-    def parse_frame(self, depth: np.ndarray, color: np.ndarray,
-                    mask: np.ndarray, extrinsic: np.ndarray,
+    def parse_frame(self, depth, color, mask, extrinsic: np.ndarray,
                     mean_depth: float | None = None):
         """Feed one frame. Returns the relabeled (global-id) mask tensor for
         frames that fuse, else None (frame 0 only initializes). The step's
         miss count stays in ``last_misses`` (a device tensor)."""
+        if self.state is None or mean_depth is None:
+            host_depth = (depth.cpu().numpy() if isinstance(depth,
+                                                            torch.Tensor)
+                          else np.asarray(depth))
         if mean_depth is None:
-            valid = depth > 0
-            mean_depth = float((depth[valid].astype(np.float64)
+            valid = host_depth > 0
+            mean_depth = float((host_depth[valid].astype(np.float64)
                                 / self.cfg.depth_scale).mean())
         if self.state is None:
-            self.state = init_from_first_frame(self.cfg, depth,
+            self.state = init_from_first_frame(self.cfg, host_depth,
                                                self.intrinsic, mean_depth,
                                                self.device)
             self.init_extrinsic_inv = np.linalg.inv(
@@ -198,10 +220,22 @@ class SemanticFusion:
                @ self.init_extrinsic_inv).astype(np.float32)
         dev = self.device
         self.state, mask_g, self.last_misses = fusion_step(
-            self.state, torch.from_numpy(np.asarray(depth)).to(dev),
-            torch.from_numpy(np.asarray(color)).to(dev),
-            torch.from_numpy(np.asarray(mask)).to(dev), e2i,
-            self.intrinsic, self.cfg)
+            self.state, _tensor(depth, dev), _tensor(color, dev),
+            _tensor(mask, dev), e2i, self.intrinsic, self.cfg)
+        self._frame_idx += 1
+        if (self.miss_check_every
+                and self._frame_idx % self.miss_check_every == 0):
+            m = int(self.last_misses)  # sync point, every Nth frame only
+            if m > 0:
+                self.total_misses += m
+                if self.on_miss is not None:
+                    self.on_miss(self._frame_idx, m)
+                else:
+                    import warnings
+                    warnings.warn(
+                        f"the splat probe dropped {m} surface voxels at "
+                        f"frame {self._frame_idx}; raise the splat budgets "
+                        "(FusionConfig.splat_max_*) for exact association")
         return mask_g
 
     def dense_state(self):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam_maskrcnn_tpu_torch.device import resolve_device
 from slam_maskrcnn_tpu_torch.fusion.fuse import TSDFVolume, _host_f32
 from slam_maskrcnn_tpu_torch.fusion.splat import INSTANCE_PALETTE
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
@@ -124,8 +125,11 @@ def ray_march(vol: TSDFVolume, origins: torch.Tensor, dirs: torch.Tensor,
     return hit, t_hit
 
 
-def camera_rays(intrinsic_inv, H: int, W: int, device="cpu") -> torch.Tensor:
-    """Per-pixel camera-frame ray targets K^-1 @ [x, y, 1] -> [H, W, 3]."""
+def camera_rays(intrinsic_inv, H: int, W: int,
+                device="cuda") -> torch.Tensor:
+    """Per-pixel camera-frame ray targets K^-1 @ [x, y, 1] -> [H, W, 3],
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     Ki = _t(intrinsic_inv, device)
     xs = torch.arange(W, dtype=torch.float32, device=device)[None, :, None]
     ys = torch.arange(H, dtype=torch.float32, device=device)[:, None, None]

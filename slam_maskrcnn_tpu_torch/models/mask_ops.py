@@ -1,13 +1,85 @@
-"""Mask post-processing on the device: detections -> label-encoded image.
+"""Mask post-processing: detections -> label-encoded instance image.
 
-Port of ``label_masks_device`` from slam_maskrcnn_tpu/models/mask_ops.py
-(``Mask_RCNN/dmask.py:47-59`` contract: pixel value = instance id, 0 =
-background).
+Port of slam_maskrcnn_tpu/models/mask_ops.py (``Mask_RCNN/dmask.py``, the
+stage-1 / stage-2 contract: a mask PNG whose pixel value is the instance
+id, 0 = background, ``dmask.py:47-59``):
+
+* the host dmask functions ``depth_filter``, ``preserve_small_objs``,
+  ``filter_tiny_objects`` and ``mask_detect`` stay numpy, copied as they
+  are: ``np.argsort`` over mask areas is not stable, and only the same
+  numpy call breaks ties the same way;
+* ``label_masks_device`` is the same label image computed on the device,
+  and ``mask_detect_device`` runs detect -> label there;
+* ``batch_mask_process`` is the ``mask_process.py`` batch driver, writing
+  the label PNGs with data/png.py.
 """
 
 from __future__ import annotations
 
+import glob
+import os
+
+import numpy as np
 import torch
+
+from slam_maskrcnn_tpu_torch.data.png import read_png, write_png
+
+
+def depth_filter(depth_image: np.ndarray, masks: np.ndarray,
+                 n_std: float = 5.0) -> np.ndarray:
+    """Zero mask pixels whose depth deviates more than n_std sigma from the
+    mask's median depth (``dmask.py:3-19``)."""
+    new_masks = masks.copy()
+    for i in range(masks.shape[2]):
+        sel = masks[:, :, i]
+        if not sel.any():
+            continue
+        median = np.median(depth_image[sel])
+        std = np.std(depth_image[sel])
+        bad = (depth_image < median - n_std * std) | \
+              (depth_image > median + n_std * std)
+        new_masks[:, :, i][bad] = False
+    return new_masks
+
+
+def preserve_small_objs(masks: np.ndarray) -> np.ndarray:
+    """Resolve overlaps in favor of smaller masks (``dmask.py:21-32``):
+    area-ascending pairwise subtraction."""
+    areas = np.array([np.count_nonzero(masks[:, :, i])
+                      for i in range(masks.shape[-1])])
+    order = np.argsort(areas)
+    for a in range(len(order)):
+        for b in range(a + 1, len(order)):
+            inter = masks[:, :, order[a]] & masks[:, :, order[b]]
+            if inter.any():
+                masks[:, :, order[b]][inter] = False
+    return masks
+
+
+def filter_tiny_objects(masks: np.ndarray, min_area: int = 2000) -> np.ndarray:
+    """Drop masks with area <= min_area px (``dmask.py:34-45``; note the
+    reference keeps area > 2000 strictly)."""
+    keep = [i for i in range(masks.shape[-1])
+            if np.count_nonzero(masks[:, :, i]) > min_area]
+    return masks[:, :, keep]
+
+
+def mask_detect(model, rgb_image: np.ndarray,
+                depth_image: np.ndarray | None = None,
+                noise_remove: bool = True) -> np.ndarray:
+    """detect -> filter -> label-encode (``dmask.py:47-59``). Returns
+    uint8 [H, W] with instance i's pixels = i+1."""
+    result = model.detect([rgb_image], verbose=0)[0]
+    masks = result["masks"].astype(bool)
+    if depth_image is not None:
+        masks = depth_filter(depth_image, masks)
+    if noise_remove:
+        masks = filter_tiny_objects(masks)
+    masks = preserve_small_objs(masks)
+    cls = np.zeros(rgb_image.shape[:2], np.uint8)
+    for i in range(masks.shape[2]):
+        cls[masks[:, :, i]] = i + 1
+    return cls
 
 
 def label_masks_device(detections: torch.Tensor, masks_u8: torch.Tensor,
@@ -65,3 +137,43 @@ def label_masks_device(detections: torch.Tensor, masks_u8: torch.Tensor,
     kmin, win = key.min(dim=0)
     return torch.where(kmin < big, label_of[win],
                        torch.zeros_like(label_of[win])).to(torch.uint8)
+
+
+def mask_detect_device(model, rgb_image, min_area: int = 2000) -> np.ndarray:
+    """``mask_detect``'s streaming variant: molding, detect and the label
+    encode run on the model's device; only the [H, W] u8 label image comes
+    back (no depth filter: it needs per-mask medians)."""
+    out, molded, windows = model.run_graph([rgb_image])
+    nwin = torch.from_numpy(model.norm_windows(windows, molded.shape[1:]))
+    label = label_masks_device(out["detections"][0], out["masks"][0],
+                               nwin[0].to(model.device),
+                               np.asarray(rgb_image).shape[:2],
+                               min_area=min_area)
+    return label.cpu().numpy()
+
+
+def batch_mask_process(model, rgb_dir: str, mask_dir: str,
+                       depth_dir: str | None = None,
+                       verbose: bool = True) -> int:
+    """The ``mask_process.py`` batch driver (``mask_process.py:94-105``):
+    sorted rgb/*.png -> mask_detect -> mask/<same name>.png (u8 labels).
+    Returns the number of masks written."""
+    os.makedirs(mask_dir, exist_ok=True)
+    files = sorted(glob.glob(os.path.join(rgb_dir, "*.png")))
+    if not files and glob.glob(os.path.join(rgb_dir, "*.jpg")):
+        raise ValueError(f"{rgb_dir} holds JPEG frames; the port reads PNG "
+                         "only (data/png.py)")
+    for k, f in enumerate(files):
+        rgb = np.ascontiguousarray(read_png(f)[:, :, ::-1])  # BGR -> RGB
+        depth = None
+        if depth_dir is not None:
+            dfile = os.path.join(depth_dir, os.path.basename(f))
+            if os.path.exists(dfile):
+                depth = read_png(dfile)
+        cls = mask_detect(model, rgb, depth)
+        out = os.path.join(mask_dir, os.path.splitext(os.path.basename(f))[0]
+                           + ".png")
+        write_png(out, cls)
+        if verbose:
+            print(f"[{k + 1}/{len(files)}] {out} ({cls.max()} instances)")
+    return len(files)

@@ -1,20 +1,34 @@
-"""Mask R-CNN inference graph.
+"""Mask R-CNN inference graph and its user-facing API.
 
 Port of slam_maskrcnn_tpu/models/mask_rcnn.py (``MaskRCNN``,
 ``Mask_RCNN/mrcnn/model.py:1812-2672``), inference mode only: backbone ->
 FPN -> RPN -> proposals -> ROIAlign -> heads -> detections -> ROIAlign ->
 mask head -> class-plane select -> uint8 quantisation, with static shapes.
 Images are NHWC float32 (molded), as in the JAX package.
+
+Around the graph, as the JAX package's host code: ``resize_image`` and
+``mold_inputs`` (molding, with ops/resize.py in place of cv2, on the
+model's device), ``MaskRCNN.load_weights`` (Keras .h5 through
+models/h5.py), ``detect`` and ``unmold_detections`` (boxes to pixels,
+each 28x28 mask pasted into its box and thresholded).
+
+COMPUTE_DTYPE "float32" means float32 on the card too: cuDNN would run an
+f32 convolution in TF32 by default (``torch.backends.cudnn.allow_tf32``),
+so ``MaskRCNNModule.forward`` turns TF32 off for convolutions and matmuls
+while an f32 module runs (``_exact_f32``) and restores the flags after.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
 from slam_maskrcnn_tpu_torch.device import resolve_device
+from slam_maskrcnn_tpu_torch.models.anchors import get_anchors
 from slam_maskrcnn_tpu_torch.models.backbone import FPN, Conv, ResNet
 from slam_maskrcnn_tpu_torch.models.config import Config
 from slam_maskrcnn_tpu_torch.models.detection import detection_layer
@@ -22,7 +36,26 @@ from slam_maskrcnn_tpu_torch.models.heads import (ConvTranspose, Dense,
                                                   FPNClassifier, MaskHead)
 from slam_maskrcnn_tpu_torch.models.proposal import generate_proposals
 from slam_maskrcnn_tpu_torch.models.rpn import RPNHead
+from slam_maskrcnn_tpu_torch.ops.resize import resize_linear
 from slam_maskrcnn_tpu_torch.ops.roi_align import pyramid_roi_align
+
+
+@contextlib.contextmanager
+def _exact_f32(enabled: bool):
+    """TF32 off for cuDNN convolutions and CUDA matmuls inside the block
+    (when ``enabled``), the caller's flags restored after."""
+    if not enabled:
+        yield
+        return
+    conv = torch.backends.cudnn.allow_tf32
+    mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = mm
 
 
 class MaskRCNNModule(nn.Module):
@@ -52,6 +85,7 @@ class MaskRCNNModule(nn.Module):
         self.detection_min_confidence = detection_min_confidence
         self.detection_nms_threshold = detection_nms_threshold
         self.rpn_bbox_std, self.bbox_std = rpn_bbox_std, bbox_std
+        self.dtype = dtype
         self.resnet = ResNet(backbone, dtype)
         self.fpn = FPN(top_down, dtype)
         self.rpn_model = RPNHead(anchors_per_location, anchor_stride,
@@ -81,6 +115,10 @@ class MaskRCNNModule(nn.Module):
     def forward(self, images, anchors, windows):
         """images [B, H, W, 3] molded f32; anchors [A, 4] normalized;
         windows [B, 4] normalized."""
+        with _exact_f32(self.dtype == torch.float32):
+            return self._forward(images, anchors, windows)
+
+    def _forward(self, images, anchors, windows):
         pyramid = self.features(images)
         feats = pyramid[:4]
         _, rpn_probs, rpn_bbox = self.rpn_outputs(pyramid)
@@ -128,10 +166,100 @@ def _init_(module: nn.Module, gen: torch.Generator) -> None:
     # mean 0, var 1)
 
 
+# ---------------------------------------------------------------------------
+# Molding and unmolding (reference utils.resize_image, model.py:2332-2434)
+# ---------------------------------------------------------------------------
+
+def _pad(image: torch.Tensor, padding) -> torch.Tensor:
+    (t, b), (l, r), _ = padding
+    out = image.new_zeros((image.shape[0] + t + b, image.shape[1] + l + r)
+                          + tuple(image.shape[2:]))
+    out[t:t + image.shape[0], l:l + image.shape[1]] = image
+    return out
+
+
+def resize_image(image, min_dim=None, max_dim=None, min_scale=None,
+                 mode="square", rect_shape=None):
+    """= ``utils.resize_image`` (utils.py:392-497) in the square, pad64,
+    rect and none modes, with cv2's INTER_LINEAR arithmetic
+    (ops/resize.py). image u8 [H, W, 3], a tensor (any device) or numpy.
+    Returns (image tensor, window (y1, x1, y2, x2), scale, padding).
+    "crop" is a training mode (a random crop) and raises here."""
+    image = torch.as_tensor(image)
+    h, w = image.shape[:2]
+    window = (0, 0, h, w)
+    scale = 1.0
+    if mode == "none":
+        return image, window, scale, [(0, 0), (0, 0), (0, 0)]
+    if mode == "crop":
+        raise NotImplementedError("resize mode 'crop' is a training mode; "
+                                  "training comes with a later slice")
+    if mode == "rect":
+        mh, mw = rect_shape
+        scale = min(mh / h, mw / w)
+        if min_scale and scale < min_scale:
+            scale = min_scale
+        image = resize_linear(image, (round(h * scale), round(w * scale)))
+        h2, w2 = image.shape[:2]
+        top, left = (mh - h2) // 2, (mw - w2) // 2
+        padding = [(top, mh - h2 - top), (left, mw - w2 - left), (0, 0)]
+        return (_pad(image, padding), (top, left, h2 + top, w2 + left),
+                scale, padding)
+    if min_dim:
+        scale = max(1.0, min_dim / min(h, w))
+    if min_scale and scale < min_scale:
+        scale = min_scale
+    if max_dim and mode == "square":
+        image_max = max(h, w)
+        if round(image_max * scale) > max_dim:
+            scale = max_dim / image_max
+    if scale != 1:
+        image = resize_linear(image, (round(h * scale), round(w * scale)))
+    h2, w2 = image.shape[:2]
+    if mode == "square":
+        top, left = (max_dim - h2) // 2, (max_dim - w2) // 2
+        padding = [(top, max_dim - h2 - top), (left, max_dim - w2 - left),
+                   (0, 0)]
+        window = (top, left, h2 + top, w2 + left)
+    elif mode == "pad64":
+        padding = [(0, (64 - h2 % 64) % 64), (0, (64 - w2 % 64) % 64),
+                   (0, 0)]
+        window = (0, 0, h2, w2)
+    else:
+        raise ValueError(f"mode {mode} not supported")
+    return _pad(image, padding), window, scale, padding
+
+
+def mold_image(image: torch.Tensor, config) -> torch.Tensor:
+    """Subtract the mean pixel (``model.py:2706-2713``): f32 out."""
+    mean = torch.as_tensor(np.asarray(config.MEAN_PIXEL, np.float32),
+                           device=image.device)
+    return image.to(torch.float32) - mean
+
+
+def unmold_mask(mask28: torch.Tensor, bbox, image_shape) -> torch.Tensor:
+    """Paste one 28x28 mask into the full image (``utils.unmold_mask``,
+    utils.py:565-581): resized to its box in float32 with cv2's bilinear
+    arithmetic, thresholded at 127.5 for the device's u8 masks (0.5 for
+    float ones). Returns bool [H, W] on the mask's device."""
+    y1, x1, y2, x2 = (int(v) for v in bbox)
+    full = torch.zeros(tuple(image_shape[:2]), dtype=torch.bool,
+                       device=mask28.device)
+    if y2 <= y1 or x2 <= x1:
+        return full
+    m = resize_linear(mask28.to(torch.float32), (y2 - y1, x2 - x1))
+    full[y1:y2, x1:x2] = m >= (127.5 if mask28.dtype == torch.uint8
+                               else 0.5)
+    return full
+
+
 class MaskRCNN:
     """User-facing wrapper: config -> module on ``device`` (default CUDA).
-    ``init_params(seed)`` fills seeded random weights; models/weights.py
-    ``load_jax_params`` carries the JAX package's variables instead."""
+    ``init_params(seed)`` fills seeded random weights, ``load_weights``
+    reads a Keras .h5, models/weights.py ``load_jax_params`` carries the
+    JAX package's variables. ``detect`` takes RGB images (numpy u8) and
+    returns the reference's dicts (rois, class_ids, scores, masks) as
+    numpy."""
 
     def __init__(self, mode: str, config: Config, device="cuda"):
         if mode != "inference":
@@ -161,6 +289,7 @@ class MaskRCNN:
             dtype=(torch.bfloat16 if config.COMPUTE_DTYPE == "bfloat16"
                    else torch.float32),
         ).eval()
+        self._anchors = {}
 
     def init_params(self, seed: int = 0):
         """Seeded random weights (drawn on the CPU, so every device gets the
@@ -169,3 +298,121 @@ class MaskRCNN:
         _init_(self.module, gen)
         self.module.to(self.device)
         return self.module
+
+    def load_weights(self, filepath: str, by_name: bool = True,
+                     exclude: list[str] | None = None,
+                     strict: bool | None = None):
+        """Load a Keras weights .h5 by layer name (models/h5.py).
+
+        strict: default True for full-model loads (no exclude): every
+        model parameter must be written and every file layer consumed, so
+        a real checkpoint can never half-load silently. Excluded or partial
+        loads default to non-strict, over seeded random weights."""
+        if not str(filepath).endswith(".h5"):
+            raise NotImplementedError(
+                "the port loads Keras .h5 weights only; training checkpoints "
+                "come with the training slice")
+        from slam_maskrcnn_tpu_torch.models.h5 import load_h5_weights
+        if strict is None:
+            strict = not exclude
+        if not strict:
+            self.init_params()
+        load_h5_weights(filepath, self, exclude=exclude, strict=strict)
+        return self
+
+    # -- inference ----------------------------------------------------------
+
+    def mold_inputs(self, images):
+        """= model.py:2332-2369, on the model's device. Returns (resized u8
+        [B, H, W, 3] tensor, windows [B, 4] numpy); the mean pixel is
+        subtracted in ``detect``."""
+        cfg = self.config
+        molded, windows = [], []
+        for img in images:
+            m, window, _, _ = resize_image(
+                torch.as_tensor(np.asarray(img)).to(self.device),
+                cfg.IMAGE_MIN_DIM, cfg.IMAGE_MAX_DIM, cfg.IMAGE_MIN_SCALE,
+                cfg.IMAGE_RESIZE_MODE,
+                rect_shape=getattr(cfg, "IMAGE_RECT_SHAPE", None))
+            molded.append(m.to(torch.uint8))
+            windows.append(window)
+        return torch.stack(molded), np.stack(windows)
+
+    def anchors(self, molded_shape) -> torch.Tensor:
+        """Normalized anchors of a molded shape, on the device (cached)."""
+        key = tuple(int(s) for s in molded_shape[:2])
+        if key not in self._anchors:
+            self._anchors[key] = torch.from_numpy(
+                get_anchors(self.config, key)).to(self.device)
+        return self._anchors[key]
+
+    @staticmethod
+    def norm_windows(windows: np.ndarray, molded_shape) -> np.ndarray:
+        H, W = molded_shape[:2]
+        scale = np.array([H - 1, W - 1, H - 1, W - 1], np.float32)
+        shift = np.array([0, 0, 1, 1], np.float32)
+        return (windows.astype(np.float32) - shift) / scale
+
+    def run_graph(self, images):
+        """Mold ``images`` and run the graph once for all of them. Returns
+        (graph outputs, molded [B, H, W, 3] u8, windows [B, 4])."""
+        molded, windows = self.mold_inputs(images)
+        shape = tuple(molded.shape[1:])
+        out = self.module(mold_image(molded, self.config),
+                          self.anchors(shape),
+                          torch.from_numpy(self.norm_windows(windows, shape))
+                          .to(self.device))
+        return out, molded, windows
+
+    def detect(self, images, verbose: int = 0):
+        """Detection on a list of RGB images (``model.py:2436-2492``), one
+        graph run for all. Returns one dict per image: rois [N, 4] pixel
+        (y1, x1, y2, x2) i32, class_ids [N], scores [N], masks [H, W, N]
+        bool, as numpy."""
+        out, molded, windows = self.run_graph(images)
+        detections = out["detections"].cpu().numpy()
+        return [self.unmold_detections(detections[i], out["masks"][i],
+                                       np.asarray(img).shape,
+                                       tuple(molded.shape[1:]), windows[i])
+                for i, img in enumerate(images)]
+
+    def unmold_detections(self, detections, mrcnn_mask, original_shape,
+                          molded_shape, window):
+        """= model.py:2371-2434. detections [D, 6] numpy (molded,
+        normalized); mrcnn_mask [D, 28, 28] u8 (a tensor on any device, or
+        numpy), already class-selected."""
+        zero_ix = np.where(detections[:, 4] == 0)[0]
+        N = zero_ix[0] if zero_ix.shape[0] > 0 else detections.shape[0]
+
+        boxes = detections[:N, :4]
+        class_ids = detections[:N, 4].astype(np.int32)
+        scores = detections[:N, 5]
+
+        # window in normalized coords of the molded image
+        H, W = molded_shape[:2]
+        scale = np.array([H - 1, W - 1, H - 1, W - 1], np.float32)
+        shift = np.array([0, 0, 1, 1], np.float32)
+        wy1, wx1, wy2, wx2 = (np.array(window, np.float32) - shift) / scale
+        wh, ww = wy2 - wy1, wx2 - wx1
+        boxes = (boxes - np.array([wy1, wx1, wy1, wx1])) / np.array(
+            [wh, ww, wh, ww])
+        # to original-image pixel coords (np.around: half to even)
+        oh, ow = original_shape[:2]
+        oscale = np.array([oh - 1, ow - 1, oh - 1, ow - 1], np.float32)
+        boxes = np.around(boxes * oscale + shift).astype(np.int32)
+
+        # drop zero-area boxes (model.py:2409-2416)
+        keep = np.where((boxes[:, 2] > boxes[:, 0])
+                        & (boxes[:, 3] > boxes[:, 1]))[0]
+        boxes, class_ids, scores = boxes[keep], class_ids[keep], scores[keep]
+        masks = torch.as_tensor(mrcnn_mask)[:N]
+        masks = masks[torch.from_numpy(keep).to(masks.device)]
+        if len(keep):
+            full = torch.stack([unmold_mask(masks[i], boxes[i],
+                                            original_shape)
+                                for i in range(len(keep))], -1)
+            full = full.cpu().numpy()
+        else:
+            full = np.empty(tuple(original_shape[:2]) + (0,), bool)
+        return dict(rois=boxes, class_ids=class_ids, scores=scores,
+                    masks=full)

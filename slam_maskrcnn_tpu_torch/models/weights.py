@@ -46,17 +46,59 @@ def _convert(module, leaf: str, arr: np.ndarray) -> np.ndarray:
     raise TypeError(f"no kernel mapping for {type(module).__name__}")
 
 
+def flax_shape(module, name: str) -> tuple:
+    """The Flax-layout shape of the port tensor ``name`` of ``module``:
+    what ``_convert`` takes to give the tensor's shape."""
+    shape = tuple(_targets(module)[name].shape)
+    if name.rsplit(".", 1)[-1] != "weight":
+        return shape
+    owner = module.get_submodule(name.rsplit(".", 1)[0])
+    if isinstance(owner, ConvTranspose):
+        return shape[2:] + shape[:2]
+    if isinstance(owner, Conv):
+        return shape[2:] + (shape[1], shape[0])
+    if isinstance(owner, Dense):
+        return shape[::-1]
+    raise TypeError(f"no kernel mapping for {type(owner).__name__}")
+
+
+def _targets(module) -> dict:
+    """Every parameter and buffer of ``module`` by name."""
+    targets = dict(module.named_parameters())
+    targets.update(dict(module.named_buffers()))
+    return targets
+
+
+def write_flax_arrays(model, arrays: dict, device):
+    """Write {port tensor name: Flax-layout array} into ``model.module``
+    (layouts converted by ``_convert``, values cast to each tensor's
+    dtype), then move the module to ``device``. Shapes are checked."""
+    dev = resolve_device(device)
+    module = model.module
+    targets = _targets(module)
+    for name, arr in arrays.items():
+        owner = module.get_submodule(name.rsplit(".", 1)[0])
+        val = _convert(owner, name.rsplit(".", 1)[-1], np.asarray(arr))
+        t = targets[name]
+        if tuple(val.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: shape {val.shape} does not fit "
+                             f"{tuple(t.shape)}")
+        with torch.no_grad():
+            t.copy_(torch.from_numpy(np.array(val)).to(t.dtype))
+    module.to(dev)
+    model.device = dev
+    return module
+
+
 def load_jax_params(variables, model, device="cuda"):
     """Write Flax ``variables`` ({"params": ..., "batch_stats": ...}) into
     ``model.module`` and move it to ``device``. Raises on any unused leaf,
     unwritten port tensor, or shape mismatch."""
     dev = resolve_device(device)
-    module = model.module
-    targets = dict(module.named_parameters())
-    targets.update(dict(module.named_buffers()))
+    targets = _targets(model.module)
     rename = {"kernel": "weight", "bias": "bias", "scale": "scale",
               "mean": "mean", "var": "var"}
-    written, unused = set(), []
+    arrays, unused = {}, []
     for path, arr in _flatten(variables):
         collection, scope, leaf = path[0], list(path[1:-1]), path[-1]
         if collection not in ("params", "batch_stats"):
@@ -68,20 +110,10 @@ def load_jax_params(variables, model, device="cuda"):
         if name not in targets:
             unused.append("/".join(path))
             continue
-        owner = module.get_submodule(".".join(scope))
-        val = _convert(owner, rename[leaf], arr)
-        t = targets[name]
-        if tuple(val.shape) != tuple(t.shape):
-            raise ValueError(f"{'/'.join(path)}: shape {val.shape} does not "
-                             f"fit {name} {tuple(t.shape)}")
-        with torch.no_grad():
-            t.copy_(torch.from_numpy(np.ascontiguousarray(val)).to(t.dtype))
-        written.add(name)
-    missing = sorted(set(targets) - written)
+        arrays[name] = arr
+    missing = sorted(set(targets) - set(arrays))
     if unused or missing:
         raise KeyError(f"strict load: unused variables {unused[:10]} "
                        f"({len(unused)}), unwritten port tensors "
                        f"{missing[:10]} ({len(missing)})")
-    module.to(dev)
-    model.device = dev
-    return module
+    return write_flax_arrays(model, arrays, dev)

@@ -275,7 +275,7 @@ def test_march_oracle_matches_jax(sphere, fused):
                                    atol=1e-5 * max(1.0, float(
                                        np.abs(want).max())))
     Ki = np.linalg.inv(K4).astype(np.float32)
-    d = tray.camera_rays(Ki, H, W)
+    d = tray.camera_rays(Ki, H, W, device="cpu")
     np.testing.assert_allclose(d.numpy(),
                                np.asarray(jray.camera_rays(jnp.asarray(Ki),
                                                            H, W)), atol=1e-6)
