@@ -68,6 +68,7 @@ N_CHUNK = 16                    # chunk form
 PIPE_VOL = 256                  # the drivers' default volume
 PIPE_FRAMES = 8                 # the synthetic TUM sequence
 PIPE_K = (520.9, 521.0, 325.1, 249.7)   # fx, fy, cx, cy (kernel.cpp:39)
+XLA_VOL = 256                   # the dense backend's timed volume
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 
@@ -561,7 +562,6 @@ def roi_read_bytes(feats, boxes, pool, image_shape) -> int:
     import torch
     from slam_maskrcnn_tpu_torch.ops import roi_align as ra
     total = 0
-    k = torch.arange(pool, dtype=torch.float32, device=boxes.device)
     for b in range(boxes.shape[0]):
         lvl = ra.roi_level(boxes[b], image_shape)
         for li, f in enumerate(feats):
@@ -570,11 +570,7 @@ def roi_read_bytes(feats, boxes, pool, image_shape) -> int:
             corners, inside = [], []
             for lo, hi, size in ((bx[:, 0], bx[:, 2], H),
                                  (bx[:, 1], bx[:, 3], W)):
-                if pool > 1:
-                    s = (lo[:, None] * (size - 1) + k[None, :]
-                         * ra._div((hi - lo) * (size - 1), pool - 1)[:, None])
-                else:
-                    s = (0.5 * (lo + hi) * (size - 1))[:, None]
+                s = ra.sample_grid(lo, hi, size, pool)
                 i0 = torch.floor(s).clamp(-2, size + 1).long()
                 corners.append(torch.stack([i0.clamp(0, size - 1),
                                             (i0 + 1).clamp(0, size - 1)], -1))
@@ -1043,7 +1039,7 @@ def stage2_phase(dev):
     cfg = FusionConfig(vol_dim=VOL, splat_max_blocks=8192,
                        splat_max_surface=1024 * 1024, splat_max_rows=49152,
                        splat_row_cap=20, probe_mode="depth", probe_stride=2)
-    sf = SemanticFusion(K4, cfg, device=dev)
+    sf = SemanticFusion(K4, cfg, backend="pallas", device=dev)
     t0 = time.time()
     for fr in frames:
         mg = sf.parse_frame(fr["depth"], fr["color"], fr["mask"],
@@ -1073,7 +1069,7 @@ def stage2_phase(dev):
     e2i = np.eye(4, dtype=np.float32)
     outs = []
     for d in ("cpu", dev):
-        sf = SemanticFusion(Ks, cfg_s, device=d)
+        sf = SemanticFusion(Ks, cfg_s, backend="pallas", device=d)
         masks = [sf.parse_frame(fr["depth"], fr["color"], fr["mask"],
                                 fr["extrinsic"], fr["mean_depth"])
                  for fr in small]
@@ -1094,6 +1090,110 @@ def stage2_phase(dev):
     check(torch.equal(pa, pb) and float(pa.sum()) > 0, "64^3 splat probe")
     log("[stage2] 64^3 (splat probe): CPU plain == GPU kernels (diff, color, "
         "weight, hist, masks, instance and color renders, probe)")
+    return stage2_xla(dev, Ks, small)
+
+
+def stage2_xla(dev, Ks, small):
+    """Phase 5b: the dense ("xla") backend, torch code on the card: at 64^3
+    the card against the CPU with a u16 and a u32 histogram
+    (SemanticFusion) and in majority-vote mode (fuse_frame_dense): the
+    relabeled masks and every integer array equal, |diff delta| <= 2e-6;
+    then its frames/s and peak memory at 256^3 with the default u32
+    histogram (2 GiB alone). Returns the summary."""
+    import torch
+    from slam_maskrcnn_tpu_torch.data.synthetic import (default_scene,
+                                                        make_sequence)
+    from slam_maskrcnn_tpu_torch.fusion import state as fstate
+    from slam_maskrcnn_tpu_torch.fusion.fuse import (fuse_frame_dense,
+                                                     to_dense)
+    from slam_maskrcnn_tpu_torch.fusion.pipeline import SemanticFusion
+    from slam_maskrcnn_tpu_torch.fusion.state import (FusionConfig,
+                                                      make_intrinsic)
+
+    def same(a, b, fields, what):
+        for f in fields:
+            check(np.array_equal(getattr(a, f), getattr(b, f)),
+                  f"{what}: CPU vs GPU {f}")
+        err = float(np.abs(a.diff - b.diff).max())
+        check(err <= 2e-6, f"{what}: CPU vs GPU |diff delta| {err}")
+        return err
+
+    errs = {}
+    for hd in (np.uint16, np.uint32):
+        cfg = FusionConfig(vol_dim=(64,) * 3, hist_dtype=hd)
+        outs = []
+        for d in ("cpu", dev):
+            sf = SemanticFusion(Ks, cfg, backend="xla", device=d)
+            masks = [sf.parse_frame(fr["depth"], fr["color"], fr["mask"],
+                                    fr["extrinsic"], fr["mean_depth"])
+                     for fr in small]
+            outs.append((sf.dense_state(), [m.cpu() for m in masks[1:]]))
+        (a, ma), (b, mb) = outs
+        check(a.hist.dtype == b.hist.dtype == hd, "xla histogram dtype")
+        check(all(torch.equal(x, y) for x, y in zip(ma, mb)),
+              f"xla {np.dtype(hd).name} masks")
+        check(a.num_objs == b.num_objs == 3, "xla num_objs")
+        errs[np.dtype(hd).name] = same(a, b, ("color", "weight", "hist"),
+                                       f"xla {np.dtype(hd).name}")
+    mv_cfg = FusionConfig(vol_dim=(64,) * 3, majority_vote=True)
+    f0 = small[0]
+    e0 = np.linalg.inv(f0["extrinsic"]).astype(np.float32)
+    outs = []
+    for d in ("cpu", dev):
+        st = fstate.init_from_first_frame(mv_cfg, f0["depth"], Ks,
+                                          f0["mean_depth"], device=d)
+        for k, fr in enumerate(small[1:]):
+            mask = np.where(fr["mask"] > 0, (fr["mask"] + k % 2) % 32, 0)
+            fuse_frame_dense(st, torch.from_numpy(fr["depth"]).to(d),
+                             torch.from_numpy(fr["color"]).to(d),
+                             torch.from_numpy(mask.astype(np.uint8)).to(d),
+                             (fr["extrinsic"] @ e0).astype(np.float32), Ks,
+                             mv_cfg)
+        outs.append(to_dense(st))
+    errs["majority_vote"] = same(outs[0], outs[1],
+                                 ("color", "weight", "mv_id", "mv_cnt"),
+                                 "xla majority vote")
+    check(int(outs[1].mv_cnt.max()) >= 2, "majority-vote counters count")
+    log(f"[stage2] xla backend at 64^3: CPU == GPU (masks, color, weight, "
+        f"hist at u16 and u32; mv_id, mv_cnt in majority-vote mode), max "
+        f"|diff delta| {errs}")
+
+    # 256^3, u32 (the default), 480x640 frames
+    K4 = make_intrinsic(520.9, 521.0, 325.1, 249.7)
+    frames = make_sequence(default_scene(), K4, H, W, n_frames=8)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sf = SemanticFusion(K4, FusionConfig(vol_dim=(XLA_VOL,) * 3),
+                        backend="xla", device=dev)
+    fr = frames[0]
+    sf.parse_frame(fr["depth"], fr["color"], fr["mask"], fr["extrinsic"],
+                   fr["mean_depth"])
+    staged = [{k: torch.from_numpy(np.asarray(f[k])).to(dev)
+               for k in ("depth", "color", "mask")} for f in frames[1:]]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for f, st in zip(frames[1:], staged):
+        mg = sf.parse_frame(st["depth"], st["color"], st["mask"],
+                            f["extrinsic"], f["mean_depth"])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    fps = len(staged) / dt
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ids = sorted(np.unique(mg.cpu().numpy()).tolist())
+    check(ids == [0, 1, 2] and sf.state.hist.dtype == torch.int32,
+          f"xla {XLA_VOL}^3 u32 association: ids {ids}")
+    st = staged[-1]
+    busy = profile_run(lambda: sf.parse_frame(
+        st["depth"], st["color"], st["mask"], frames[-1]["extrinsic"],
+        frames[-1]["mean_depth"]), 1, "xla frame")
+    log(f"[stage2] xla backend at {XLA_VOL}^3 (u32 histogram, {H}x{W}): "
+        f"{len(staged)} frames in {dt:.3f} s = {fps:.2f} frames/s, peak "
+        f"{peak:.2f} GiB, ids {ids}")
+    del sf, staged
+    torch.cuda.empty_cache()
+    return dict(xla_64_max_diff_err=errs, xla_256_fps=fps,
+                xla_256_peak_gib=peak, xla_256_busy_share=busy)
 
 
 def _copy(a):
@@ -1301,11 +1401,12 @@ def pipeline_phase(dev):
     orbit_dir = os.path.join(work, "orbit")
     t0 = time.time()
     fusion, views = counted("fusion_demo", lambda: fusion_demo.run(
-        seq_gt, vol_dim=PIPE_VOL, device=dev, intrinsics=PIPE_K,
+        seq_gt, vol_dim=PIPE_VOL, backend="pallas", device=dev,
+        intrinsics=PIPE_K,
         orbit_frames=4, save_dir=orbit_dir, verbose=False))
     t_demo = time.time() - t0
     # the same frames from memory: the fusion alone, timed
-    mem = SemanticFusion(K4, cfg, device=dev)
+    mem = SemanticFusion(K4, cfg, backend="pallas", device=dev)
     mem.parse_frame(frames[0]["depth"], frames[0]["color"],
                     frames[0]["mask"], frames[0]["extrinsic"],
                     frames[0]["mean_depth"])
@@ -1346,7 +1447,7 @@ def pipeline_phase(dev):
         check(torch.equal(getattr(back, f), getattr(fusion.state, f)),
               f"checkpoint round trip {f}")
     check(back.n_obs == fusion.state.n_obs, "checkpoint n_obs")
-    twin = SemanticFusion(K4, cfg, device=dev)
+    twin = SemanticFusion(K4, cfg, backend="pallas", device=dev)
     twin.state, twin.init_extrinsic_inv = back, fusion.init_extrinsic_inv
     twin.mean_depth = fusion.mean_depth
     extra = frames[2]
@@ -1366,16 +1467,19 @@ def pipeline_phase(dev):
     # path over the 8 frames, the host path (depth filter) over 3
     coco = MaskRCNN("inference", CocoInferenceConfig(), device=dev)
     coco.init_params(0)
-    live = LivePipeline(coco, K4, cfg, use_depth_filter=False)
+    live = LivePipeline(coco, K4, cfg, backend="pallas",
+                        use_depth_filter=False)
     fps_dev = counted("live_device", lambda: live.run_device(
         TUMSequence(seq_gt), verbose=False))
     check(live.frames_done == PIPE_FRAMES
           and live.fusion.state.n_obs == n_fused, "run_device frames")
     summary["live_device_busy"] = profile_run(
-        lambda: LivePipeline(coco, K4, cfg, use_depth_filter=False)
+        lambda: LivePipeline(coco, K4, cfg, backend="pallas",
+                             use_depth_filter=False)
         .run_device(TUMSequence(seq_gt), verbose=False), PIPE_FRAMES,
         "live frame")
-    host = LivePipeline(coco, K4, cfg, use_depth_filter=True)
+    host = LivePipeline(coco, K4, cfg, backend="pallas",
+                        use_depth_filter=True)
     fps_host = counted("live_host", lambda: host.run(
         TUMSequence(seq_gt, max_frames=3), verbose=False))
     check(host.frames_done == 3 and host.fusion.state.n_obs == 2,
@@ -1428,6 +1532,229 @@ def pipeline_phase(dev):
     return by_path, checks, summary
 
 
+TRAIN_STEPS = 100              # bf16 steps from seeded init
+TRAIN_LR = 0.001               # LEARNING_RATE, train_shapes' default
+
+
+def train_phase(dev):
+    """Phase 7: Mask R-CNN training at TrainShapesConfig (ResNet-50 FPN, 4
+    classes, 128^2, batch 8, 2000 training proposals, 32 training rois)
+    through MaskRCNN("training") and the Trainer's step:
+
+    1. a seeded shapes set drawn by data/draw.py, batches by
+       data_generator;
+    2. one float32 step on the card against the same step on the CPU
+       (plain versions), TF32 off, with the same variables, batch and
+       target-sampling draws. The variables are a seeded init whose RPN
+       output layers are zeroed but for the objectness bias by anchor
+       ratio: the proposals are then the anchors, squares first, in index
+       order on both devices. (Random RPN scores that differ by an ulp
+       between the devices reorder near-tied proposals, and the sampling
+       draws follow the proposal slots.) Loss parts within 1e-3
+       relative, every updated parameter within 2e-6 (the CPU tests' bar
+       against the JAX step);
+    3. TRAIN_STEPS bfloat16 steps from seeded init, layers "all": every
+       loss finite, the mean of the last 20 below that of the first 20;
+       ms a step, peak memory, the device's busy share, NMS launches a
+       step (counted from 0);
+    4. the NMS kernel at the training shape (batch 8, n 4092, 2000
+       outputs, IoU 0.7) on the proposal layer's own inputs from a step
+       of (3), against its plain version in every image, and timed;
+    5. save_h5_weights, a strict load into MaskRCNN("inference"), whose
+       detect on the 20 committed scenes equals the trained model's.
+
+    Returns (launches of the training run, nms row extras, summary)."""
+    import os
+    import shutil
+    import torch
+    from slam_maskrcnn_tpu_torch import kernels
+    from slam_maskrcnn_tpu_torch.data.dataset import data_generator
+    from slam_maskrcnn_tpu_torch.data.shapes import ShapesDataset
+    from slam_maskrcnn_tpu_torch.models.anchors import get_anchors
+    from slam_maskrcnn_tpu_torch.models.h5 import save_h5_weights
+    from slam_maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from slam_maskrcnn_tpu_torch.models.targets import draw_target_noise
+    from slam_maskrcnn_tpu_torch.ops import nms as nm
+    from slam_maskrcnn_tpu_torch.samples.train_shapes import (
+        InferenceShapesConfig, TrainShapesConfig, detect_scenes)
+    from slam_maskrcnn_tpu_torch.train.trainer import (LAYER_REGEX, Trainer,
+                                                       batch_to_device)
+
+    t_phase = time.time()
+    cfg = TrainShapesConfig()
+    B, P = cfg.BATCH_SIZE, cfg.POST_NMS_ROIS_TRAINING
+    ds = ShapesDataset()
+    ds.load_shapes(500, 128, 128, seed=0)
+    ds.prepare()
+    np.random.seed(0)
+    gen = data_generator(ds, cfg, seed=0)
+    t0 = time.time()
+    host = [next(gen) for _ in range(TRAIN_STEPS + 5)]
+    data_ms = (time.time() - t0) * 1e3 / len(host)
+    anchors = torch.from_numpy(get_anchors(cfg, cfg.IMAGE_SHAPE)).to(dev)
+    batches = [dict(batch_to_device(h, dev), anchors=anchors) for h in host]
+    log(f"[train] {len(host)} batches of {B} drawn and targeted on the host "
+        f"in {data_ms:.1f} ms a batch; {anchors.shape[0]} anchors")
+
+    # ---- 2. one f32 step, card vs CPU
+    f32 = type("F32", (TrainShapesConfig,), dict(COMPUTE_DTYPE="float32"))()
+    pair = []
+    g = torch.Generator().manual_seed(5)
+    pos, neg = draw_target_noise(B, P, g, "cpu")
+    for d in ("cpu", dev):
+        m = MaskRCNN("training", f32, device=d)
+        m.init_params(1)
+        with torch.no_grad():
+            for head in (m.module.rpn_model.rpn_class_raw,
+                         m.module.rpn_model.rpn_bbox_pred):
+                head.weight.zero_()
+                head.bias.zero_()
+            # anchor (bg, fg) logits by ratio 0.5, 1, 2: squares first
+            m.module.rpn_model.rpn_class_raw.bias[1::2] = torch.tensor(
+                [1.0, 2.0, 0.0])
+        b = dict(batch_to_device(host[0], d), anchors=anchors.to(d))
+        t0 = time.time()
+        loss, parts = Trainer(m).make_step(TRAIN_LR, LAYER_REGEX["all"])(
+            b, pos.to(d), neg.to(d))
+        if d != "cpu":
+            torch.cuda.synchronize()
+        pair.append((m, float(loss), {k: float(v) for k, v in parts.items()},
+                     time.time() - t0))
+    (mc, lc, pc, tc), (mg, lg, pg, tg) = pair
+    rel = {k: abs(pg[k] - pc[k]) / max(abs(pc[k]), 1e-12) for k in pc}
+    check(all(r <= 1e-3 for r in rel.values()),
+          f"f32 step: card vs CPU loss parts {pg} vs {pc}")
+    check(pc["mrcnn_mask_loss"] > 0 and pc["mrcnn_bbox_loss"] > 0,
+          f"f32 step: positive rois {pc}")
+    gp = dict(mg.module.named_parameters())
+    p_err = max(float((t.detach().cpu() - gp[n].detach().cpu()).abs().max())
+                for n, t in mc.module.named_parameters())
+    b_err = max(float((t.cpu() - dict(mg.module.named_buffers())[n].cpu())
+                      .abs().max()) for n, t in mc.module.named_buffers())
+    check(p_err <= 2e-6, f"f32 step: card vs CPU params differ by {p_err}")
+    log(f"[train] f32 step, card vs CPU (TF32 off): loss {lg:.6f} vs "
+        f"{lc:.6f}, parts relative error {max(rel.values()):.2e}, updated "
+        f"params max |delta| {p_err:.3e}, buffers {b_err:.3e}; CPU step "
+        f"{tc:.1f} s, card step {tg:.2f} s (first call)")
+    del pair, mc, mg, gp
+    torch.cuda.empty_cache()
+
+    # ---- 3. bf16 training from seeded init, layers "all"
+    model = MaskRCNN("training", cfg, device=dev)
+    model.init_params(0)
+    step = Trainer(model).make_step(TRAIN_LR, LAYER_REGEX["all"])
+    noise = torch.Generator(device=dev).manual_seed(0)
+    seen = {}
+    orig = nm._nms_cuda
+
+    def nms_capture(boxes, scores, max_output, thr, sthr):
+        if max_output == P and "args" not in seen:
+            seen["args"] = (boxes.clone(), scores.clone(), max_output, thr,
+                            sthr)
+        return orig(boxes, scores, max_output, thr, sthr)
+
+    def run(lo, hi, losses):
+        for b in batches[lo:hi]:
+            pn, nn = draw_target_noise(B, P, noise, dev)
+            losses.append(step(b, pn, nn)[0])
+
+    nm._nms_cuda = nms_capture
+    try:
+        warm = []
+        run(0, 2, warm)                     # cuDNN's choices, the allocator
+    finally:
+        nm._nms_cuda = orig
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.launches.reset()
+    losses = []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.time()
+    start.record()
+    run(2, 2 + TRAIN_STEPS, losses)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kernels.launches.counts)
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = np.array([float(x) for x in warm + losses])
+    check(np.isfinite(hist).all(), "training losses finite")
+    first, last = float(hist[:20].mean()), float(hist[-20:].mean())
+    check(last < first, f"training loss mean of the last 20 {last} not "
+                        f"below the first 20 {first}")
+    check(launches.get("nms", 0) == TRAIN_STEPS
+          and launches.get("roi_align", 0) == 0,
+          f"training launches: one NMS a step, no ROIAlign: {launches}")
+    log(f"[train] {TRAIN_STEPS} bf16 steps (layers all, lr {TRAIN_LR}): "
+        f"{step_ms:.2f} ms a step = {1e3 / step_ms:.2f} steps/s (wall "
+        f"{wall * 1e3 / TRAIN_STEPS:.2f} ms a step; data on the host "
+        f"{data_ms:.1f} ms a batch, not in the loop), peak {peak:.2f} GiB, "
+        f"loss {hist[0]:.3f} -> {hist[-1]:.3f} (mean of the first 20 "
+        f"{first:.3f}, last 20 {last:.3f}), launches {launches} "
+        f"({launches['nms'] / TRAIN_STEPS:.0f} NMS a step)")
+    busy = profile_run(lambda: run(2, 7, []), 5, "training step")
+
+    # ---- 4. the NMS kernel at the training shape
+    b, s, cap, thr, sthr = seen["args"]
+    check(tuple(s.shape) == (B, anchors.shape[0]) and cap == P,
+          f"training NMS shape {tuple(s.shape)} -> {cap}")
+    ki, kv = nm._nms_cuda(b, s, cap, thr, sthr)
+    for i in range(B):
+        pi, pv = nm.non_max_suppression_plain(b[i], s[i], cap, thr, sthr)
+        check(torch.equal(ki[i], pi) and torch.equal(kv[i], pv),
+              f"training nms image {i}: kernel != plain")
+    n = s.shape[1]
+    t_k = cuda_time_ms(lambda: nm._nms_cuda(b, s, cap, thr, sthr), 20)
+    t_p = cuda_time_ms(lambda: [nm.non_max_suppression_plain(
+        b[i], s[i], cap, thr, sthr) for i in range(B)], 1, warmup=0)
+    sel = kv.sum(1)
+    bms, by = bound_ms(B * (n * 20 + cap * 5), int((sel + 1).sum()) * n * 12)
+    log(f"[train] nms at the training shape (batch {B}, n {n}, {cap} "
+        f"outputs, IoU {thr}): equal to the plain version in every image; "
+        f"kernel {t_k:.3f} ms, plain {t_p:.1f} ms, bound {bms:.5f} ms "
+        f"({by}), selections {sel.tolist()}")
+    nms_extra = dict(train_shape=dict(batch=B, n=n, max_output=cap,
+                                      ms=t_k, plain_ms=t_p, bound_ms=bms,
+                                      bound_by=by, max_abs_err=0.0,
+                                      selections=sel.tolist()))
+
+    # ---- 5. the h5 writer: strict load, the same detections
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "build", "train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = save_h5_weights(os.path.join(work, "shapes_trained.h5"), model)
+    icfg = InferenceShapesConfig()
+    mem = MaskRCNN("inference", icfg, device=dev)
+    mem.module.load_state_dict(model.module.state_dict())
+    mem.module.to(dev)
+    disk = MaskRCNN("inference", icfg, device=dev).load_weights(path)
+    scenes = detect_scenes()
+    ra = [mem.detect([sc[0]])[0] for sc in scenes]
+    rb = [disk.detect([sc[0]])[0] for sc in scenes]
+    for x, y in zip(ra, rb):
+        for k in ("rois", "class_ids", "scores", "masks"):
+            check(np.array_equal(x[k], y[k]),
+                  f"detect after the h5 round trip: {k} differs")
+    n_det = sum(len(x["class_ids"]) for x in ra)
+    log(f"[train] save_h5_weights ({os.path.getsize(path) / 2 ** 20:.1f} "
+        f"MiB) -> strict load: detect on the {len(scenes)} committed scenes "
+        f"equal to the trained model's ({n_det} detections)")
+    del model, mem, disk, batches
+    shutil.rmtree(work, ignore_errors=True)          # 170 MB of f32 weights
+    torch.cuda.empty_cache()
+    summary = dict(step_ms=step_ms, steps_per_s=1e3 / step_ms,
+                   wall_ms_per_step=wall * 1e3 / TRAIN_STEPS,
+                   host_data_ms_per_batch=data_ms, peak_gib=peak,
+                   busy_share=busy, loss_first20=first, loss_last20=last,
+                   nms_per_step=launches["nms"] / TRAIN_STEPS,
+                   f32_parts_rel_err=max(rel.values()), f32_param_err=p_err,
+                   seconds=time.time() - t_phase)
+    log(f"[train] phase took {summary['seconds']:.1f} s")
+    return launches, nms_extra, summary
+
+
 def main() -> int:
     try:
         import torch
@@ -1471,28 +1798,33 @@ def main() -> int:
     rows = kernel_phase(dev, state, staged, rec, cfg, K4)
     del state, model
     torch.cuda.empty_cache()
-    stage2_phase(dev)
+    s2_summary = stage2_phase(dev)
     p_paths, p_checks, p_summary = pipeline_phase(dev)
     for k, c in p_checks.items():
         rows[k]["pipeline_max_abs_err"] = c["max_abs_err"]
+    t_launches, nms_extra, t_summary = train_phase(dev)
+    rows["nms"].update(nms_extra)
 
     # launches: each path was counted from 0 on its own (launches_by_path);
     # "launches" is their total. Every kernel of a path must have launched
     # in that path's run.
-    by_path = {"step": launches, "paired_chunk": c_launches, **p_paths}
+    by_path = {"step": launches, "paired_chunk": c_launches, **p_paths,
+               "train": t_launches}
     on_path = {"step": ("fuse", "nms", "roi_align"),
                "paired_chunk": ("fuse_pair", "nms", "roi_align"),
                "detect": ("nms", "roi_align"),
                "mask_process": ("nms", "roi_align"),
                "fusion_demo": ("fuse",),
                "live_device": ("fuse", "nms", "roi_align"),
-               "live_host": ("fuse", "nms", "roi_align")}
+               "live_host": ("fuse", "nms", "roi_align"),
+               "train": ("nms",)}
     for path, names in on_path.items():
         check(all(by_path[path][k] > 0 for k in names),
               f"a kernel of the {path} path was never launched: "
               f"{by_path[path]}")
     for k in rows:
-        rows[k]["launches_by_path"] = {p: c[k] for p, c in by_path.items()}
+        rows[k]["launches_by_path"] = {p: c.get(k, 0)
+                                       for p, c in by_path.items()}
         rows[k]["launches"] = sum(rows[k]["launches_by_path"].values())
     log(json.dumps({"north_star": {
         "step": {"stage_ms": ms, "fps": fps, "peak_gib": peak,
@@ -1503,6 +1835,9 @@ def main() -> int:
         "card": smi}}))
     log(json.dumps({"pipeline": dict(p_summary, launches=p_paths,
                                      card=smi)}))
+    log(json.dumps({"stage2_xla": dict(s2_summary, card=smi)}))
+    log(json.dumps({"train": dict(t_summary, launches=t_launches,
+                                  card=smi)}))
     log(f"[total] {time.time() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [rows[k] for k in (

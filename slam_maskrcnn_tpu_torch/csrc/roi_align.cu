@@ -29,8 +29,9 @@
 //   sample grid of crop_and_resize, the two-stage blend), and the build
 //   uses --fmad=false: kernel and plain version agree bit for bit.
 // - No 64-bit division: a thread splits the block index and finds its
-//   first sample point with 32-bit divisions, and thread 0 divides once
-//   for the grid step.
+//   first sample point with 32-bit divisions. The grid step and the level
+//   scale are multiplications by f32 reciprocals, as XLA compiles the
+//   reference's divisions by constants.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -88,10 +89,12 @@ struct Axis {
 };
 
 // the sample coordinates of crop_and_resize: origin + k * step for pool > 1,
-// the box centre for pool == 1 (origin holds it, step is unused)
+// fused into one rounding as XLA compiles the reference (an explicit fma:
+// --fmad=false only stops the compiler from contracting on its own); the
+// box centre for pool == 1 (origin holds it, step is unused)
 __device__ __forceinline__ Axis sample_axis(float origin, float step, int k,
                                             int pool, float m1, int size) {
-  const float s = pool > 1 ? origin + (float)k * step : origin;
+  const float s = pool > 1 ? __fmaf_rn((float)k, step, origin) : origin;
   Axis ax;
   ax.inside = s >= 0.0f && s <= m1;
   ax.a = ax.b = 0;
@@ -110,7 +113,7 @@ template <typename T>
 __global__ void __launch_bounds__(ROI_THREADS)
     roi_align_kernel(Pyramid pyr, const float* __restrict__ boxes, int n,
                      int pool, int C, int slices, int per_slice,
-                     float level_denom, float* __restrict__ out) {
+                     float level_scale, float* __restrict__ out) {
   constexpr int V = Vec<T>::N;
   __shared__ Axis ys[MAX_POOL], xs[MAX_POOL];
   __shared__ float s_box[4];
@@ -126,9 +129,11 @@ __global__ void __launch_bounds__(ROI_THREADS)
   if (tid == 0) {
     const float* bx = boxes + (size_t)roi * 4;
     const float y1 = bx[0], x1 = bx[1], y2 = bx[2], x2 = bx[3];
-    // roi_level: 4 + round(log2(sqrt(h*w) / (224 / sqrt(image area))))
+    // roi_level: 4 + round(log2(sqrt(h*w) / (224 / sqrt(image area)))),
+    // the division a multiplication by the host's f32 reciprocal
+    // (level_scale), as XLA compiles the reference
     const float scale =
-        sqrtf(fmaxf((y2 - y1) * (x2 - x1), 1e-12f)) / level_denom;
+        sqrtf(fmaxf((y2 - y1) * (x2 - x1), 1e-12f)) * level_scale;
     float lvl = 4.0f + rintf(log2f(fmaxf(scale, 1e-12f)));
     lvl = fminf(fmaxf(lvl, 2.0f), 5.0f);
     const int li = (int)lvl - 2;
@@ -140,10 +145,13 @@ __global__ void __launch_bounds__(ROI_THREADS)
     s_w = W;
     const float hm1 = (float)(H - 1), wm1 = (float)(W - 1);
     if (pool > 1) {  // origin and step of the sample grid
+      // the step (y2 - y1) * (H - 1) / (pool - 1) as XLA folds it:
+      // (y2 - y1) * f32((H - 1) * f32(1 / (pool - 1)))
+      const float inv = 1.0f / (float)(pool - 1);
       s_box[0] = y1 * hm1;
       s_box[1] = x1 * wm1;
-      s_box[2] = (y2 - y1) * hm1 / (float)(pool - 1);
-      s_box[3] = (x2 - x1) * wm1 / (float)(pool - 1);
+      s_box[2] = (y2 - y1) * (hm1 * inv);
+      s_box[3] = (x2 - x1) * (wm1 * inv);
     } else {          // the centre
       s_box[0] = 0.5f * (y1 + y2) * hm1;
       s_box[1] = 0.5f * (x1 + x2) * wm1;
@@ -205,7 +213,7 @@ __global__ void __launch_bounds__(ROI_THREADS)
 extern "C" int roi_align_cuda(int bf16, const void* f0, const void* f1,
                               const void* f2, const void* f3, const int* hw,
                               const float* boxes, int batch, int n, int pool,
-                              int C, float level_denom, float* out,
+                              int C, float level_scale, float* out,
                               void* stream) {
   Pyramid pyr;
   const void* feats[4] = {f0, f1, f2, f3};
@@ -241,9 +249,9 @@ extern "C" int roi_align_cuda(int bf16, const void* f0, const void* f1,
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     roi_align_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, 0, s>>>(
-        pyr, boxes, n, pool, C, slices, per_slice, level_denom, out);
+        pyr, boxes, n, pool, C, slices, per_slice, level_scale, out);
   else
     roi_align_kernel<float><<<(unsigned)blocks, threads, 0, s>>>(
-        pyr, boxes, n, pool, C, slices, per_slice, level_denom, out);
+        pyr, boxes, n, pool, C, slices, per_slice, level_scale, out);
   return (int)cudaGetLastError();
 }

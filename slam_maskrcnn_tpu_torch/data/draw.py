@@ -1,0 +1,284 @@
+"""Filled shapes drawn as OpenCV draws them, without cv2.
+
+The shapes dataset (data/shapes.py) draws with ``cv2.rectangle``,
+``cv2.circle`` and ``cv2.fillPoly``, each filled, 8-connected, with no
+sub-pixel shift; where the port runs there is no cv2. These are those
+three calls in numpy, pixel for pixel (OpenCV's drawing.cpp):
+
+* ``rectangle``: the inclusive box between the two corners, clipped;
+* ``circle``: the integer midpoint circle of ``Circle`` (drawing.cpp),
+  filled by horizontal spans, clipped span by span;
+* ``fill_poly``: ``CollectPolyEdges`` + ``FillEdgeCollection``: the
+  outline drawn by the 8-connected ``LineIterator`` (Bresenham, ends
+  clipped by ``clipLine``), edges in 16.16 fixed point from the clipped
+  ends, scanlines filled from the left edge rounded up to the right edge
+  rounded down.
+
+``rectangle`` and ``circle`` equal OpenCV 5's anywhere, clipped or not.
+``fill_poly`` equals it on the dataset's triangles, those clipped at the
+image border included (tests/test_torch_shapes.py); a polygon that lies
+mostly outside the image can differ in the border column, where OpenCV 5
+paints the part beyond the border onto it.
+
+Each draws in place into a u8 [H, W] or [H, W, C] array and returns it;
+``color`` is a number or a sequence of C numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+XY_SHIFT = 16
+XY_ONE = 1 << XY_SHIFT
+
+
+def _hline(img: np.ndarray, y: int, x1: int, x2: int, color) -> None:
+    """ICV_HLINE: pixels x1..x2 (inclusive) of row y."""
+    img[y, x1:x2 + 1] = color
+
+
+def rectangle(img: np.ndarray, pt1, pt2, color) -> np.ndarray:
+    """cv2.rectangle(img, pt1, pt2, color, -1): (x, y) corners, both
+    included."""
+    H, W = img.shape[:2]
+    x1, x2 = sorted((int(pt1[0]), int(pt2[0])))
+    y1, y2 = sorted((int(pt1[1]), int(pt2[1])))
+    x1, y1 = max(x1, 0), max(y1, 0)
+    x2, y2 = min(x2, W - 1), min(y2, H - 1)
+    if x1 <= x2 and y1 <= y2:
+        img[y1:y2 + 1, x1:x2 + 1] = color
+    return img
+
+
+def circle(img: np.ndarray, center, radius: int, color) -> np.ndarray:
+    """cv2.circle(img, center, radius, color, -1) (``Circle``, fill=1)."""
+    H, W = img.shape[:2]
+    cx, cy = int(center[0]), int(center[1])
+    radius = int(radius)
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    inside = (cx >= radius and cx < W - radius and cy >= radius
+              and cy < H - radius)
+    while dx >= dy:
+        y11, y12, y21, y22 = cy - dy, cy + dy, cy - dx, cy + dx
+        x11, x12, x21, x22 = cx - dx, cx + dx, cx - dy, cx + dy
+        if inside:
+            for y in (y11, y12):
+                _hline(img, y, x11, x12, color)
+            for y in (y21, y22):
+                _hline(img, y, x21, x22, color)
+        elif x11 < W and x12 >= 0 and y21 < H and y22 >= 0:
+            x11, x12 = max(x11, 0), min(x12, W - 1)
+            for y in (y11, y12):
+                if 0 <= y < H:
+                    _hline(img, y, x11, x12, color)
+            if x21 < W and x22 >= 0:
+                x21, x22 = max(x21, 0), min(x22, W - 1)
+                for y in (y21, y22):
+                    if 0 <= y < H:
+                        _hline(img, y, x21, x22, color)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = 0 if err <= 0 else -1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    return img
+
+
+def clip_line(W: int, H: int, p1, p2):
+    """cv::clipLine on an image of W x H. Returns (inside, p1, p2) with
+    the points as OpenCV leaves them. ``int()`` of a float truncates
+    toward zero, as C's (int64) cast of a double."""
+    x1, y1 = p1
+    x2, y2 = p2
+    right, bottom = W - 1, H - 1
+    code = lambda x, y: ((x < 0) + (x > right) * 2 + (y < 0) * 4
+                         + (y > bottom) * 8)
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def line_points(W: int, H: int, p1, p2):
+    """The pixels of cv::LineIterator(img, p1, p2, 8, leftToRight=true),
+    in order."""
+    if not (0 <= p1[0] < W and 0 <= p2[0] < W and 0 <= p1[1] < H
+            and 0 <= p2[1] < H):
+        ok, p1, p2 = clip_line(W, H, p1, p2)
+        if not ok:
+            return []
+    (x1, y1), (x2, y2) = p1, p2
+    sx = sy = 1
+    dx, dy = x2 - x1, y2 - y1
+    if dx < 0:                                  # left to right
+        dx, dy = -dx, -dy
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    if dy < 0:
+        dy, sy = -dy, -1
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err = dx - (dy + dy)
+    plus_delta, minus_delta = dx + dx, -(dy + dy)
+    x, y = x1, y1
+    out = []
+    for _ in range(dx + 1):
+        out.append((x, y))
+        minor = err < 0
+        err += minus_delta + (plus_delta if minor else 0)
+        if vert:                    # y is the major axis
+            y += sy
+            x += sx if minor else 0
+        else:
+            x += sx
+            y += sy if minor else 0
+    return out
+
+
+class _Edge:
+    __slots__ = ("y0", "y1", "x", "dx", "next")
+
+    def __init__(self, y0=0, y1=0, x=0, dx=0):
+        self.y0, self.y1, self.x, self.dx, self.next = y0, y1, x, dx, None
+
+
+def _c_div(a: int, b: int) -> int:
+    """C's integer division: toward zero."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def fill_poly(img: np.ndarray, pts, color) -> np.ndarray:
+    """cv2.fillPoly(img, pts, color) with one contour or several: pts
+    [N, 2] or [C, N, 2] integer (x, y) vertices (LINE_8, shift 0)."""
+    H, W = img.shape[:2]
+    pts = np.asarray(pts, np.int64)
+    contours = pts if pts.ndim == 3 else pts[None]
+    edges = []
+    for contour in contours:
+        v = [(int(x), int(y)) for x, y in contour]
+        x0, y0 = v[-1]
+        pt0 = (x0 << XY_SHIFT, y0)
+        for x1, y1 in v:
+            pt1 = (x1 << XY_SHIFT, y1)
+            t0 = ((pt0[0] + (XY_ONE >> 1)) >> XY_SHIFT, pt0[1])
+            t1 = ((pt1[0] + (XY_ONE >> 1)) >> XY_SHIFT, pt1[1])
+            for x, y in line_points(W, H, t0, t1):
+                img[y, x] = color
+            pt0c, pt1c = list(pt0), list(pt1)
+            if not (0 <= t0[0] < W and 0 <= t1[0] < W and 0 <= t0[1] < H
+                    and 0 <= t1[1] < H):
+                # the edge from the clipped ends, where they still span rows
+                _, c0, c1 = clip_line(W, H, t0, t1)
+                if c0[1] != c1[1]:
+                    pt0c = [c0[0] << XY_SHIFT, c0[1]]
+                    pt1c = [c1[0] << XY_SHIFT, c1[1]]
+            if pt0[1] != pt1[1]:
+                dx = _c_div(pt1c[0] - pt0c[0], pt1c[1] - pt0c[1])
+                if pt0[1] < pt1[1]:
+                    edges.append(_Edge(pt0[1], pt1[1],
+                                       pt0c[0] + (pt0[1] - pt0c[1]) * dx, dx))
+                else:
+                    edges.append(_Edge(pt1[1], pt0[1],
+                                       pt1c[0] + (pt1[1] - pt1c[1]) * dx, dx))
+            pt0 = pt1
+    _fill_edges(img, edges, color)
+    return img
+
+
+def _fill_edges(img: np.ndarray, edges: list, color) -> None:
+    """FillEdgeCollection: scanlines between active edge pairs."""
+    H, W = img.shape[:2]
+    total = len(edges)
+    if total < 2:
+        return
+    y_min = min(e.y0 for e in edges)
+    y_max = max(e.y1 for e in edges)
+    ends = [e.x + (e.y1 - e.y0) * e.dx for e in edges]
+    x_min = min(min(e.x for e in edges), min(ends))
+    x_max = max(max(e.x for e in edges), max(ends))
+    if y_max < 0 or y_min >= H or x_max < 0 or x_min >= (W << XY_SHIFT):
+        return
+    edges.sort(key=lambda e: (e.y0, e.x, e.dx))
+    edges.append(_Edge(y0=2 ** 31 - 1))
+    tmp = _Edge()
+    i = 0
+    e = edges[0]
+    y_max = min(y_max, H)
+    for y in range(e.y0, y_max):
+        draw = False
+        clip = y < 0
+        prelast, last = tmp, tmp.next
+        while last is not None or e.y0 == y:
+            if last is not None and last.y1 == y:
+                prelast.next = last.next    # the edge ends here
+                last = last.next
+                continue
+            keep_prelast = prelast
+            if last is not None and (e.y0 > y or last.x < e.x):
+                prelast, last = last, last.next
+            elif i < total:                 # an edge starts here
+                prelast.next = e
+                e.next = last
+                prelast = e
+                i += 1
+                e = edges[i]
+            else:
+                break
+            if draw:
+                if not clip:
+                    # span from the left edge rounded up to the right
+                    # edge rounded down
+                    if keep_prelast.x > prelast.x:
+                        x1 = (prelast.x + XY_ONE - 1) >> XY_SHIFT
+                        x2 = keep_prelast.x >> XY_SHIFT
+                    else:
+                        x1 = (keep_prelast.x + XY_ONE - 1) >> XY_SHIFT
+                        x2 = prelast.x >> XY_SHIFT
+                    if x1 < W and x2 >= 0:
+                        _hline(img, y, max(x1, 0), min(x2, W - 1), color)
+                keep_prelast.x += keep_prelast.dx
+                prelast.x += prelast.dx
+            draw = not draw
+        # bubble sort of the active list by x
+        keep_prelast = None
+        while True:
+            prelast, last = tmp, tmp.next
+            last_exchange = None
+            while last is not keep_prelast and last.next is not None:
+                te = last.next
+                if last.x > te.x:
+                    prelast.next = te
+                    last.next = te.next
+                    te.next = last
+                    prelast = te
+                    last_exchange = prelast
+                else:
+                    prelast, last = last, te
+            if last_exchange is None:
+                break
+            keep_prelast = last_exchange
+            if keep_prelast is tmp.next or keep_prelast is tmp:
+                break

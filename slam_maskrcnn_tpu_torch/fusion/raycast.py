@@ -11,7 +11,9 @@ iteration) or at cfg.max_march_steps. The adaptive step rule (full voxel,
 then voxel/4 once |f| < voxel/2, tsdf.cu:116-119) is kept per ray.
 
 This is the oracle for fusion/splat.py; the main path renders by
-splatting.
+splatting. It is also the dense ("xla") path's association probe. The
+small products (the ray rotation, the norm) are written out elementwise
+in a fixed order, so the CPU and the card compute them alike.
 """
 
 from __future__ import annotations
@@ -20,26 +22,46 @@ import numpy as np
 import torch
 
 from slam_maskrcnn_tpu_torch.device import resolve_device
-from slam_maskrcnn_tpu_torch.fusion.fuse import TSDFVolume, _host_f32
+from slam_maskrcnn_tpu_torch.fusion.fuse import _host_f32
 from slam_maskrcnn_tpu_torch.fusion.splat import INSTANCE_PALETTE
-from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
+from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig, TSDFState
 
 __all__ = ["INSTANCE_PALETTE", "trilinear", "ray_march", "camera_rays",
            "back_project_probe", "orbit_camera", "render", "render_orbit"]
 
 
 def _t(a, dev) -> torch.Tensor:
+    """An f32 tensor on ``dev``: a tensor already there as it is (no
+    copy, no sync), anything else uploaded."""
+    if (isinstance(a, torch.Tensor) and a.device == torch.device(dev)
+            and a.dtype == torch.float32):
+        return a
     return torch.tensor(_host_f32(a), device=dev)
 
 
+def _rotate(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """v [..., 3] @ M.T [3, 3] as elementwise products and sums in a fixed
+    order (no matrix-multiply library, whose FMAs differ by device)."""
+    return torch.stack([(v[..., 0] * M[r, 0] + v[..., 1] * M[r, 1])
+                        + v[..., 2] * M[r, 2] for r in range(3)], dim=-1)
+
+
+def _unit(d: torch.Tensor) -> torch.Tensor:
+    """d / |d| over the last axis of 3, summed in a fixed order."""
+    n = torch.sqrt((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+                   + d[..., 2] * d[..., 2])
+    return d / n[..., None]
+
+
 def trilinear(vol: torch.Tensor, vol_start, voxel, pos: torch.Tensor,
-              u16: bool = False) -> torch.Tensor:
+              unsigned: bool = False) -> torch.Tensor:
     """Trilinear sample of a volume at world positions.
 
     ``vol``: [X, Y, Z] or [X, Y, Z, C]; ``pos``: [..., 3]. Mirrors
     ``interp_tsdf_diff/color/cnt`` (utils.cu:99-170) with the corner
-    indices clamped to the grid. ``u16``: the values are u16 counts stored
-    in int16 (the volume's histogram) and are read as such."""
+    indices clamped to the grid. ``unsigned``: the values are unsigned
+    counts stored in the signed tensor of their width (the volume's
+    histogram: u16 in int16, u32 in int32) and are read as such."""
     dims = vol.shape[:3]
     chan = tuple(vol.shape[3:])
     dev = vol.device
@@ -56,8 +78,8 @@ def trilinear(vol: torch.Tensor, vol_start, voxel, pos: torch.Tensor,
         cj = (fl[..., 1] + j).clamp(0, dims[1] - 1)
         ck = (fl[..., 2] + k).clamp(0, dims[2] - 1)
         v = flat[ci * sx + cj * sy + ck]
-        if u16:
-            v = v.to(torch.int32) & 0xFFFF
+        if unsigned:
+            v = v.to(torch.int64) & ((1 << 8 * flat.element_size()) - 1)
         return v.to(torch.float32)
 
     if chan:
@@ -75,7 +97,7 @@ def trilinear(vol: torch.Tensor, vol_start, voxel, pos: torch.Tensor,
     return mix(low, high, fz)
 
 
-def ray_march(vol: TSDFVolume, origins: torch.Tensor, dirs: torch.Tensor,
+def ray_march(vol: TSDFState, origins: torch.Tensor, dirs: torch.Tensor,
               cfg: FusionConfig, tmin_clip: float = 0.01,
               tmax_clip: float = 100.0):
     """March rays against the SDF. origins/dirs: [..., 3] (origins
@@ -95,10 +117,10 @@ def ray_march(vol: TSDFVolume, origins: torch.Tensor, dirs: torch.Tensor,
     tfar = torch.maximum(ttop, tbot).min(-1).values.clamp_max(tmax_clip) \
         - 1e-6
     voxel0 = float(vol.voxel[0])
+    vx = _t(vol.voxel, dev)
 
-    def sample(t):
-        return trilinear(vol.diff, vol.vol_start, vol.voxel,
-                         o + t[..., None] * d)
+    def sample(t):   # the geometry uploaded once, not once a march step
+        return trilinear(vol.diff, vs, vx, o + t[..., None] * d)
 
     t = tnear + 1e-6
     f_t = sample(t)
@@ -138,7 +160,7 @@ def camera_rays(intrinsic_inv, H: int, W: int,
             + Ki[None, None, :3, 2] * ones)
 
 
-def back_project_probe(vol: TSDFVolume, extrinsic2init, intrinsic_inv,
+def back_project_probe(vol: TSDFState, extrinsic2init, intrinsic_inv,
                        H: int, W: int, cfg: FusionConfig):
     """What the fused model claims each pixel's instance is
     (= ``back_proj_kernel``, tsdf.cu:72-135): rays from the current camera;
@@ -148,13 +170,12 @@ def back_project_probe(vol: TSDFVolume, extrinsic2init, intrinsic_inv,
     dev = vol.device
     E = _t(extrinsic2init, dev)
     R_t = E[:3, :3].T
-    o = -R_t @ E[:3, 3]
+    o = -_rotate(E[:3, 3], R_t)
     targets = camera_rays(intrinsic_inv, H, W, dev)
-    d = targets @ R_t.T
-    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    d = _unit(_rotate(targets, R_t))
     hit, t_hit = ray_march(vol, o, d, cfg)
     pos = o + t_hit[..., None] * d
-    cnts = trilinear(vol.hist, vol.vol_start, vol.voxel, pos, u16=True)
+    cnts = trilinear(vol.hist, vol.vol_start, vol.voxel, pos, unsigned=True)
     probs = torch.where(hit[..., None], cnts, torch.zeros_like(cnts))
     return probs, probs > cfg.box_mask_thresh
 
@@ -173,7 +194,7 @@ def orbit_camera(angle, dist):
     return rot, c
 
 
-def render(vol: TSDFVolume, s2w, center, H: int, W: int, cfg: FusionConfig,
+def render(vol: TSDFState, s2w, center, H: int, W: int, cfg: FusionConfig,
            mode: str = "instance") -> torch.Tensor:
     """Raycast render (= ``show_tsdf_kernel``, viewer.cu:17-86).
 
@@ -188,8 +209,7 @@ def render(vol: TSDFVolume, s2w, center, H: int, W: int, cfg: FusionConfig,
     c = _t(center, dev)
     target = torch.stack([S[r, 0] * xs + S[r, 1] * ys + S[r, 2] + S[r, 3]
                           for r in range(3)], dim=-1)
-    d = target - c
-    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    d = _unit(target - c)
     hit, t_hit = ray_march(vol, c, d, cfg)
     pos = c + t_hit[..., None] * d
     if mode == "color":
@@ -197,14 +217,14 @@ def render(vol: TSDFVolume, s2w, center, H: int, W: int, cfg: FusionConfig,
                         vol.voxel, pos)
         return torch.where(hit[..., None], rgb,
                            torch.zeros_like(rgb)).to(torch.uint8)
-    cnts = trilinear(vol.hist, vol.vol_start, vol.voxel, pos, u16=True)
+    cnts = trilinear(vol.hist, vol.vol_start, vol.voxel, pos, unsigned=True)
     obj = torch.argmax(cnts, dim=-1)
     visible = hit & (obj > 0) & (cnts.max(dim=-1).values > 0)
     pal = torch.from_numpy(INSTANCE_PALETTE).to(dev)
     return torch.where(visible[..., None], pal[obj], torch.zeros_like(pal[:1]))
 
 
-def render_orbit(vol: TSDFVolume, angle, dist, intrinsic_inv, H: int, W: int,
+def render_orbit(vol: TSDFState, angle, dist, intrinsic_inv, H: int, W: int,
                  cfg: FusionConfig, mode: str = "instance") -> torch.Tensor:
     """= ``Viewer::show_tsdf`` (viewer.cu:137-166): orbit camera at
     ``angle`` / ``dist``, s2w = rot @ K^-1."""

@@ -37,8 +37,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from slam_maskrcnn_tpu_torch.fusion.fuse import TSDFVolume, _host_f32
-from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
+from slam_maskrcnn_tpu_torch.fusion.fuse import _host_f32
+from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig, TSDFState
 
 BX, BY, BZ = 8, 8, 32          # block geometry of the enumeration order
 ROW = 128                      # voxels per row (4 y by 32 z)
@@ -129,7 +129,7 @@ def _positions(gx, gy, gz, vol_start, voxel):
             float(vol_start[2]) + gz.to(torch.float32) * float(voxel[2]))
 
 
-def _compact_shell(vol: TSDFVolume, max_blocks: int, max_rows: int,
+def _compact_shell(vol: TSDFState, max_blocks: int, max_rows: int,
                    shell_band: float) -> dict:
     """State-side half of the splat: compact the surface shell to
     [max_rows, 128] rows in the blocked enumeration order and compute their
@@ -300,7 +300,7 @@ def _splat_from_rows(rows: dict, M, m4, H: int, W: int, max_blocks: int,
     return zbuf, vid, overflow, clip
 
 
-def splat_zbuffer(vol: TSDFVolume, M, m4, H: int, W: int,
+def splat_zbuffer(vol: TSDFState, M, m4, H: int, W: int,
                   max_blocks: int = 4096, max_surface: int = 512 * 1024,
                   max_rows: int = 8192, shell_band: float = 0.999,
                   row_cap: int = 0, fill: bool = False):
@@ -338,7 +338,7 @@ def select_candidates(rows: dict, M, m4, row_cap: int):
     return codes, overflow, clip
 
 
-def decode_candidates(codes: torch.Tensor, vol: TSDFVolume):
+def decode_candidates(codes: torch.Tensor, vol: TSDFState):
     """Camera-independent half of splat_from_candidates: candidate ids ->
     world positions (px, py, pz, valid). Invariant between candidate
     refreshes, so the north-star chunk computes it once per refresh."""
@@ -351,7 +351,7 @@ def decode_candidates(codes: torch.Tensor, vol: TSDFVolume):
     return (*_positions(gx, gy, gz, vol.vol_start, vol.voxel), ok0)
 
 
-def splat_from_candidates(codes: torch.Tensor, vol: TSDFVolume, M, m4,
+def splat_from_candidates(codes: torch.Tensor, vol: TSDFState, M, m4,
                           H: int, W: int, fill: bool = True, decoded=None):
     """Render-phase splat over a precomputed candidate set ([N] i64, -1
     empty): decode ids to world positions, project with the current camera,
@@ -408,7 +408,7 @@ def shade_fetched(have, bgr, rows, mode: str) -> torch.Tensor:
     return torch.where(lit[..., None], pal[obj], torch.zeros_like(pal[:1]))
 
 
-def _shade(vd2: torch.Tensor, vol: TSDFVolume, mode: str) -> torch.Tensor:
+def _shade(vd2: torch.Tensor, vol: TSDFState, mode: str) -> torch.Tensor:
     """Shade a winner-voxel image [H, W] from the volume's current color or
     histogram."""
     return shade_fetched(*fetch_shade_inputs(vd2, vol.color, vol.hist, mode),
@@ -438,7 +438,7 @@ def probe_from_rows(rows: dict, hist: torch.Tensor, extrinsic2init,
     return probs, box_mask, overflow, clip
 
 
-def splat_probe(vol: TSDFVolume, extrinsic2init, intrinsic, H: int, W: int,
+def splat_probe(vol: TSDFState, extrinsic2init, intrinsic, H: int, W: int,
                 cfg: FusionConfig):
     """Back-projection probe (the role of back_proj_kernel,
     tsdf.cu:72-135): per-pixel instance histogram at the fused surface seen
@@ -450,7 +450,7 @@ def splat_probe(vol: TSDFVolume, extrinsic2init, intrinsic, H: int, W: int,
                            cfg)
 
 
-def depth_probe(vol: TSDFVolume, depth: torch.Tensor, extrinsic2init,
+def depth_probe(vol: TSDFState, depth: torch.Tensor, extrinsic2init,
                 intrinsic, cfg: FusionConfig):
     """Per-pixel histogram votes at each depth pixel's voxel. Returns
     (probs [Hs, Ws, K], box_mask [Hs, Ws, K]) at stride cfg.probe_stride;
@@ -487,7 +487,7 @@ def depth_probe(vol: TSDFVolume, depth: torch.Tensor, extrinsic2init,
 
 # ---------------------------------------------------------------- renders
 
-def splat_render(vol: TSDFVolume, M, m4, H: int, W: int, cfg: FusionConfig,
+def splat_render(vol: TSDFState, M, m4, H: int, W: int, cfg: FusionConfig,
                  mode: str = "instance", max_blocks: int | None = None,
                  fill: bool = True) -> torch.Tensor:
     """Render the volume from a pinhole (M, m4). Returns uint8 [H, W, 3]
@@ -499,7 +499,7 @@ def splat_render(vol: TSDFVolume, M, m4, H: int, W: int, cfg: FusionConfig,
     return _shade(vid.view(H, W), vol, mode)
 
 
-def splat_render_orbit(vol: TSDFVolume, angle, dist, intrinsic, H: int,
+def splat_render_orbit(vol: TSDFState, angle, dist, intrinsic, H: int,
                        W: int, cfg: FusionConfig, mode: str = "instance",
                        fill: bool = True) -> torch.Tensor:
     """splat_render from the viewer's orbit camera at (angle, dist)."""
@@ -518,7 +518,7 @@ class OrbitRenderer:
             img = orb.render(0.01 * k, dist)
     """
 
-    def __init__(self, vol: TSDFVolume, intrinsic, H: int, W: int,
+    def __init__(self, vol: TSDFState, intrinsic, H: int, W: int,
                  cfg: FusionConfig, mode: str = "instance"):
         self.vol, self.H, self.W, self.mode, self.cfg = vol, H, W, mode, cfg
         self.intrinsic = _host_f32(intrinsic)

@@ -55,11 +55,19 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Frozen Keras-style BatchNorm (epsilon 1e-3), in float32:
-    y = (x - mean) * (rsqrt(var + eps) * scale) + bias, as Flax computes it.
-    Returns the input's dtype."""
+    """Keras-style BatchNorm (epsilon 1e-3) over channel dim 1, in
+    float32: y = (x - mean) * (rsqrt(var + eps) * scale) + bias, as Flax
+    computes it. Returns the input's dtype.
+
+    Frozen (the module in eval mode, the default): the running ``mean`` /
+    ``var``. In train mode (the training graph with TRAIN_BN): the batch's
+    statistics over every axis but the channel's, with Flax's fast
+    variance E[x^2] - E[x]^2 (floored at 0), and the running averages move
+    by momentum 0.99 (ra = 0.99 ra + 0.01 stat), as Flax's
+    ``nn.BatchNorm(use_running_average=False)`` does."""
 
     eps = 1e-3
+    momentum = 0.99
 
     def __init__(self, n: int):
         super().__init__()
@@ -70,9 +78,19 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        y = ((x.float() - self.mean.view(shape)) * mul.view(shape)
-             + self.bias.view(shape))
+        xf = x.float()
+        if self.training:
+            axes = (0,) + tuple(range(2, x.dim()))
+            mean = xf.mean(axes)
+            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 

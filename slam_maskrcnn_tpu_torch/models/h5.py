@@ -28,11 +28,20 @@ kw, cin, cout], and the Flax-layout arrays are written into the port's
 tensors by models/weights.py (f16 widened to the tensor's dtype). With
 ``strict`` it fails unless every port tensor was written and every file
 layer consumed, as the JAX importer does.
+
+``save_h5_weights`` is the counterpart of the JAX package's writer
+(import_h5.py:79-100), again without h5py: ``H5Writer`` writes the same
+subset the reader parses (superblock 0, version-1 object headers,
+symbol-table groups, contiguous little-endian datasets) in the Keras
+layout ``model_weights/<layer>/<layer>/<name>:0``, the deconv kernel as
+Keras's [kh, kw, cout, cin]. h5py, the JAX package's strict loader and
+this module's read what it writes.
 """
 
 from __future__ import annotations
 
 import re
+import struct
 
 import numpy as np
 
@@ -252,6 +261,127 @@ class H5File:
         yield from walk(self.root, "")
 
 
+class H5Writer:
+    """Writes a tree of groups (dicts) and datasets (numpy arrays) as an
+    HDF5 file in the subset ``H5File`` reads: superblock version 0 with
+    8-byte offsets and lengths, version-1 object headers, each group a
+    symbol table (a one-level B-tree of symbol nodes, names in a local
+    heap), each dataset contiguous. Members are stored in name order;
+    the superblock's K values are set so that the largest group fits one
+    B-tree node."""
+
+    LEAF_K = 16                     # a symbol node holds 2 * LEAF_K entries
+
+    def __init__(self, tree: dict):
+        self.tree = tree
+        self.buf = bytearray(96)    # the superblock, written last
+        most = max(self._largest(tree), 1)
+        nodes = -(-most // (2 * self.LEAF_K))
+        self.node_k = max(16, -(-nodes // 2))
+
+    @classmethod
+    def _largest(cls, tree) -> int:
+        if not isinstance(tree, dict):
+            return 0
+        return max([len(tree)] + [cls._largest(v) for v in tree.values()])
+
+    def _alloc(self, data: bytes) -> int:
+        self.buf += b"\0" * (-len(self.buf) % 8)
+        pos = len(self.buf)
+        self.buf += data
+        return pos
+
+    def _header(self, msgs) -> int:
+        """A version-1 object header holding ``msgs`` [(type, body)]."""
+        body = b""
+        for mtype, m in msgs:
+            m += b"\0" * (-len(m) % 8)
+            body += struct.pack("<HHB3x", mtype, len(m), 0) + m
+        return self._alloc(struct.pack("<BBHII4x", 1, 0, len(msgs), 1,
+                                       len(body)) + body)
+
+    @staticmethod
+    def _datatype(dt: np.dtype) -> bytes:
+        if dt.newbyteorder("<") != dt:
+            raise H5Error("big-endian arrays are not written")
+        if dt.kind == "f":
+            sign, exp_loc, exp_size, mant, bias = {
+                2: (15, 10, 5, 10, 15), 4: (31, 23, 8, 23, 127),
+                8: (63, 52, 11, 52, 1023)}[dt.itemsize]
+            return (struct.pack("<B3BI", 0x11, 0x20, sign, 0, dt.itemsize)
+                    + struct.pack("<HHBBBBI", 0, 8 * dt.itemsize, exp_loc,
+                                  exp_size, 0, mant, bias))
+        if dt.kind in "iu":
+            return (struct.pack("<B3BI", 0x10, 0x08 if dt.kind == "i" else 0,
+                                0, 0, dt.itemsize)
+                    + struct.pack("<HH", 0, 8 * dt.itemsize))
+        raise H5Error(f"dtype {dt} is not written (integers and IEEE floats)")
+
+    def _dataset(self, arr: np.ndarray) -> int:
+        arr = np.ascontiguousarray(arr)
+        data = self._alloc(arr.tobytes())
+        space = struct.pack("<BBBB4x", 1, arr.ndim, 0, 0) + b"".join(
+            struct.pack("<Q", d) for d in arr.shape)
+        layout = struct.pack("<BBQQ", 3, 1, data, arr.nbytes)
+        return self._header([(0x01, space), (0x03, self._datatype(arr.dtype)),
+                             (0x08, layout)])
+
+    def _group(self, members: dict):
+        """Write a group's members, then the group. Returns (object header
+        address, symbol-table scratch pad: B-tree and heap addresses)."""
+        entries = {}
+        for name, value in members.items():
+            if isinstance(value, dict):
+                entries[name] = (1,) + self._group(value)
+            else:
+                entries[name] = (0, self._dataset(np.asarray(value)),
+                                 b"\0" * 16)
+        names = sorted(entries, key=lambda n: n.encode())
+        heap_data = bytearray(8)                    # offset 0: ""
+        offset = {}
+        for n in names:
+            offset[n] = len(heap_data)
+            b = n.encode() + b"\0"
+            heap_data += b + b"\0" * (-len(b) % 8)
+        free = len(heap_data)                       # one free block, as
+        heap_data += struct.pack("<QQ", 1, 16)      # libhdf5 leaves one
+        data = self._alloc(bytes(heap_data))
+        heap = self._alloc(b"HEAP\0\0\0\0" + struct.pack(
+            "<QQQ", len(heap_data), free, data))
+        per = 2 * self.LEAF_K
+        snods = []
+        for i in range(0, len(names), per):
+            chunk = names[i:i + per]
+            node = b"SNOD\x01\0" + struct.pack("<H", len(chunk))
+            for n in chunk:
+                cache, addr, scratch = entries[n]
+                node += struct.pack("<QQI4x", offset[n], addr, cache) + scratch
+            node += b"\0" * (8 + per * 40 - len(node))
+            snods.append((self._alloc(node), offset[chunk[-1]]))
+        if len(snods) > 2 * self.node_k:
+            raise H5Error("group too large for one B-tree node")
+        tree = b"TREE\0\0" + struct.pack("<HQQ", len(snods), UNDEFINED,
+                                           UNDEFINED) + struct.pack("<Q", 0)
+        for addr, last in snods:
+            tree += struct.pack("<QQ", addr, last)
+        k = self.node_k
+        tree += b"\0" * (24 + (2 * k + 1) * 8 + 2 * k * 8 - len(tree))
+        btree = self._alloc(tree)
+        scratch = struct.pack("<QQ", btree, heap)
+        return self._header([(0x11, scratch)]), scratch
+
+    def write(self, path: str) -> str:
+        root, scratch = self._group(self.tree)
+        sb = SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0]) + struct.pack(
+            "<HHIQQQQ", self.LEAF_K, self.node_k, 0, 0, UNDEFINED,
+            len(self.buf), UNDEFINED) + struct.pack("<QQI4x", 0, root, 1) \
+            + scratch
+        self.buf[:96] = sb
+        with open(path, "wb") as f:
+            f.write(self.buf)
+        return path
+
+
 def keras_layers(path: str) -> dict[str, dict[str, np.ndarray]]:
     """{layer: {weight name: array}} of a Keras weights file; the layer is
     the group that owns the datasets (``import_h5._keras_layers``)."""
@@ -286,6 +416,37 @@ def _port_slots(module):
             kind = {"weight": "kernel", "bias": "bias"}[leaf]
         out[name] = (tuple(scope), kind)
     return out
+
+
+_KERAS_NAMES = {"kernel": "kernel:0", "bias": "bias:0", "scale": "gamma:0",
+                "bias_bn": "beta:0", "mean": "moving_mean:0",
+                "var": "moving_variance:0"}
+
+
+def keras_weights(model) -> dict[str, dict[str, np.ndarray]]:
+    """{layer: {Keras weight name: array}} of ``model.module``: the port's
+    tensors in the Keras layout (Flax's, the deconv kernel as [kh, kw,
+    cout, cin]), keyed by the reference's layer names."""
+    from slam_maskrcnn_tpu_torch.models.weights import flax_array
+
+    out: dict[str, dict] = {}
+    for name, (scope, kind) in _port_slots(model.module).items():
+        layer = scope[-1]
+        value = flax_array(model.module, name)
+        if kind == "kernel" and "deconv" in layer and value.ndim == 4:
+            value = np.ascontiguousarray(np.transpose(value, (0, 1, 3, 2)))
+        out.setdefault(layer, {})[_KERAS_NAMES[kind]] = value
+    return out
+
+
+def save_h5_weights(path: str, model) -> str:
+    """Write ``model``'s weights as a Keras-layout .h5 (the JAX package's
+    ``save_h5_weights``): ``model_weights/<layer>/<layer>/<name>:0``,
+    float32 as the tensors hold them. ``load_h5_weights`` (strict) reads
+    it back into the same architecture."""
+    tree = {"model_weights": {layer: {layer: w} for layer, w in
+                              keras_weights(model).items()}}
+    return H5Writer(tree).write(str(path))
 
 
 def load_h5_weights(path: str, model, exclude=None, strict: bool = False,

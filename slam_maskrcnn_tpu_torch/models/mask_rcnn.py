@@ -1,10 +1,15 @@
-"""Mask R-CNN inference graph and its user-facing API.
+"""Mask R-CNN: the inference and training graphs and the user-facing API.
 
 Port of slam_maskrcnn_tpu/models/mask_rcnn.py (``MaskRCNN``,
-``Mask_RCNN/mrcnn/model.py:1812-2672``), inference mode only: backbone ->
-FPN -> RPN -> proposals -> ROIAlign -> heads -> detections -> ROIAlign ->
-mask head -> class-plane select -> uint8 quantisation, with static shapes.
-Images are NHWC float32 (molded), as in the JAX package.
+``Mask_RCNN/mrcnn/model.py:1812-2672``). Inference (``forward``):
+backbone -> FPN -> RPN -> proposals -> ROIAlign -> heads -> detections ->
+ROIAlign -> mask head -> class-plane select -> uint8 quantisation, with
+static shapes. Training (``train_forward``, the training branch of
+``MaskRCNN.build``, model.py:1957-2008): backbone -> RPN -> proposals
+(the NMS kernel on CUDA, on detached inputs) -> detection-target sampling
+(models/targets.py) -> the training ROIAlign (ops/roi_align.py
+``pyramid_roi_align_train``, differentiable) -> heads on the flattened
+rois. Images are NHWC float32 (molded), as in the JAX package.
 
 Around the graph, as the JAX package's host code: ``resize_image`` and
 ``mold_inputs`` (molding, with ops/resize.py in place of cv2, on the
@@ -37,7 +42,8 @@ from slam_maskrcnn_tpu_torch.models.heads import (ConvTranspose, Dense,
 from slam_maskrcnn_tpu_torch.models.proposal import generate_proposals
 from slam_maskrcnn_tpu_torch.models.rpn import RPNHead
 from slam_maskrcnn_tpu_torch.ops.resize import resize_linear
-from slam_maskrcnn_tpu_torch.ops.roi_align import pyramid_roi_align
+from slam_maskrcnn_tpu_torch.ops.roi_align import (pyramid_roi_align,
+                                                   pyramid_roi_align_train)
 
 
 @contextlib.contextmanager
@@ -59,9 +65,11 @@ def _exact_f32(enabled: bool):
 
 
 class MaskRCNNModule(nn.Module):
-    """The inference graph. ``forward`` returns detections [B, D, 6] and
+    """The graph. ``forward`` (inference) returns detections [B, D, 6] and
     class-selected masks [B, D, 28, 28] uint8, plus the proposals and RPN
-    outputs."""
+    outputs; ``train_forward`` the head outputs and sampled targets the
+    losses take. BatchNorm uses batch statistics only while the module is
+    in train mode (TRAIN_BN)."""
 
     def __init__(self, num_classes: int, backbone: str = "resnet101",
                  image_shape=(1024, 1024), pool_size: int = 7,
@@ -117,6 +125,53 @@ class MaskRCNNModule(nn.Module):
         windows [B, 4] normalized."""
         with _exact_f32(self.dtype == torch.float32):
             return self._forward(images, anchors, windows)
+
+    def train_forward(self, images, anchors, gt_class_ids, gt_boxes,
+                      gt_masks, pos_noise, neg_noise, train_rois: int = 200,
+                      positive_ratio: float = 0.33):
+        """The training forward (the JAX ``train_forward``,
+        mask_rcnn.py:140-197). images [B, H, W, 3] molded f32; anchors
+        [A, 4]; gt as data/dataset.py's batch; pos_noise / neg_noise
+        [B, proposal_count] uniform draws of the target sampling
+        (models/targets.py ``draw_target_noise``). Returns (outputs,
+        targets) dicts for models/losses.py ``total_loss``."""
+        from slam_maskrcnn_tpu_torch.models.targets import detection_targets
+
+        B = images.shape[0]
+        pyramid = self.features(images)
+        feats = pyramid[:4]
+        rpn_logits, rpn_probs, rpn_bbox = self.rpn_outputs(pyramid)
+        # NMS selects: no gradient flows through the proposals (the JAX
+        # graph's stop_gradient)
+        proposals, _ = generate_proposals(
+            rpn_probs.detach(), rpn_bbox.detach(), anchors,
+            self.proposal_count, self.rpn_nms_threshold, self.pre_nms_limit,
+            self.rpn_bbox_std)
+        rois, tgt_cls, tgt_bbox, tgt_mask, roi_valid = detection_targets(
+            proposals, gt_class_ids, gt_boxes, gt_masks, pos_noise,
+            neg_noise, train_rois=train_rois, positive_ratio=positive_ratio,
+            mask_size=self.mask_pool_size * 2, bbox_std=self.bbox_std)
+        rois = rois.detach()
+        # ROIAlign per image; the heads on the flattened [B * T] rois, as
+        # the reference's TimeDistributed heads see the whole batch
+        nhwc = tuple(f.permute(0, 2, 3, 1) for f in feats)
+        pooled = pyramid_roi_align_train(nhwc, rois, self.pool_size,
+                                         self.image_shape)
+        mpooled = pyramid_roi_align_train(nhwc, rois, self.mask_pool_size,
+                                          self.image_shape)
+        T = rois.shape[1]
+        logits, probs, bbox = self.fpn_classifier(pooled.flatten(0, 1))
+        masks = self.fpn_mask(mpooled.flatten(0, 1))
+        outputs = dict(
+            rpn_class_logits=rpn_logits, rpn_probs=rpn_probs,
+            rpn_bbox=rpn_bbox,
+            mrcnn_class_logits=logits.reshape(B, T, -1),
+            mrcnn_probs=probs.reshape(B, T, -1),
+            mrcnn_bbox=bbox.reshape((B, T) + bbox.shape[1:]),
+            mrcnn_masks=masks.reshape((B, T) + masks.shape[1:]))
+        targets = dict(target_class_ids=tgt_cls, target_bbox=tgt_bbox,
+                       target_mask=tgt_mask, roi_valid=roi_valid, rois=rois)
+        return outputs, targets
 
     def _forward(self, images, anchors, windows):
         pyramid = self.features(images)
@@ -181,19 +236,18 @@ def _pad(image: torch.Tensor, padding) -> torch.Tensor:
 def resize_image(image, min_dim=None, max_dim=None, min_scale=None,
                  mode="square", rect_shape=None):
     """= ``utils.resize_image`` (utils.py:392-497) in the square, pad64,
-    rect and none modes, with cv2's INTER_LINEAR arithmetic
+    rect, crop and none modes, with cv2's INTER_LINEAR arithmetic
     (ops/resize.py). image u8 [H, W, 3], a tensor (any device) or numpy.
-    Returns (image tensor, window (y1, x1, y2, x2), scale, padding).
-    "crop" is a training mode (a random crop) and raises here."""
+    Returns (image tensor, window (y1, x1, y2, x2), scale, padding), and in
+    "crop" mode (training only: a random min_dim square drawn from numpy's
+    global stream, as the JAX package) the crop (y, x, h, w) as a fifth
+    element."""
     image = torch.as_tensor(image)
     h, w = image.shape[:2]
     window = (0, 0, h, w)
     scale = 1.0
     if mode == "none":
         return image, window, scale, [(0, 0), (0, 0), (0, 0)]
-    if mode == "crop":
-        raise NotImplementedError("resize mode 'crop' is a training mode; "
-                                  "training comes with a later slice")
     if mode == "rect":
         mh, mw = rect_shape
         scale = min(mh / h, mw / w)
@@ -225,6 +279,13 @@ def resize_image(image, min_dim=None, max_dim=None, min_scale=None,
         padding = [(0, (64 - h2 % 64) % 64), (0, (64 - w2 % 64) % 64),
                    (0, 0)]
         window = (0, 0, h2, w2)
+    elif mode == "crop":
+        # random min_dim crop (training only), utils.py:475-487
+        y = np.random.randint(0, (h2 - min_dim) + 1) if h2 > min_dim else 0
+        x = np.random.randint(0, (w2 - min_dim) + 1) if w2 > min_dim else 0
+        image = image[y:y + min_dim, x:x + min_dim]
+        return (image, (0, 0, min_dim, min_dim), scale,
+                [(0, 0), (0, 0), (0, 0)], (y, x, min_dim, min_dim))
     else:
         raise ValueError(f"mode {mode} not supported")
     return _pad(image, padding), window, scale, padding
@@ -256,16 +317,20 @@ def unmold_mask(mask28: torch.Tensor, bbox, image_shape) -> torch.Tensor:
 class MaskRCNN:
     """User-facing wrapper: config -> module on ``device`` (default CUDA).
     ``init_params(seed)`` fills seeded random weights, ``load_weights``
-    reads a Keras .h5, models/weights.py ``load_jax_params`` carries the
-    JAX package's variables. ``detect`` takes RGB images (numpy u8) and
-    returns the reference's dicts (rois, class_ids, scores, masks) as
-    numpy."""
+    reads a Keras .h5 or a checkpoint of train/checkpoint.py,
+    models/weights.py ``load_jax_params`` carries the JAX package's
+    variables. ``detect`` takes RGB images (numpy u8) and returns the
+    reference's dicts (rois, class_ids, scores, masks) as numpy. Mode
+    "training" sizes the proposal layer for training
+    (POST_NMS_ROIS_TRAINING) and ``train`` runs train/trainer.py."""
 
-    def __init__(self, mode: str, config: Config, device="cuda"):
-        if mode != "inference":
-            raise NotImplementedError("the port implements inference only")
+    def __init__(self, mode: str, config: Config, model_dir: str = "./logs",
+                 device="cuda"):
+        if mode not in ("training", "inference"):
+            raise ValueError(f"mode {mode!r}: 'training' or 'inference'")
         self.mode = mode
         self.config = config
+        self.model_dir = model_dir
         self.device = resolve_device(device)
         shape = tuple(int(s) for s in config.IMAGE_SHAPE[:2])
         self.module = MaskRCNNModule(
@@ -278,7 +343,9 @@ class MaskRCNN:
             top_down=config.TOP_DOWN_PYRAMID_SIZE,
             anchors_per_location=len(config.RPN_ANCHOR_RATIOS),
             anchor_stride=config.RPN_ANCHOR_STRIDE,
-            proposal_count=config.POST_NMS_ROIS_INFERENCE,
+            proposal_count=(config.POST_NMS_ROIS_TRAINING
+                            if mode == "training"
+                            else config.POST_NMS_ROIS_INFERENCE),
             rpn_nms_threshold=config.RPN_NMS_THRESHOLD,
             pre_nms_limit=config.PRE_NMS_LIMIT,
             detection_max_instances=config.DETECTION_MAX_INSTANCES,
@@ -290,6 +357,8 @@ class MaskRCNN:
                    else torch.float32),
         ).eval()
         self._anchors = {}
+        # weights written (init_params, load_weights, load_jax_params)
+        self.initialized = False
 
     def init_params(self, seed: int = 0):
         """Seeded random weights (drawn on the CPU, so every device gets the
@@ -297,21 +366,24 @@ class MaskRCNN:
         gen = torch.Generator().manual_seed(seed)
         _init_(self.module, gen)
         self.module.to(self.device)
+        self.initialized = True
         return self.module
 
     def load_weights(self, filepath: str, by_name: bool = True,
                      exclude: list[str] | None = None,
                      strict: bool | None = None):
-        """Load a Keras weights .h5 by layer name (models/h5.py).
+        """Load a Keras weights .h5 by layer name (models/h5.py), or a
+        checkpoint written by train/checkpoint.py (any other name).
 
-        strict: default True for full-model loads (no exclude): every
+        strict (.h5): default True for full-model loads (no exclude): every
         model parameter must be written and every file layer consumed, so
         a real checkpoint can never half-load silently. Excluded or partial
         loads default to non-strict, over seeded random weights."""
         if not str(filepath).endswith(".h5"):
-            raise NotImplementedError(
-                "the port loads Keras .h5 weights only; training checkpoints "
-                "come with the training slice")
+            from slam_maskrcnn_tpu_torch.train.checkpoint import \
+                restore_params
+            restore_params(filepath, self)
+            return self
         from slam_maskrcnn_tpu_torch.models.h5 import load_h5_weights
         if strict is None:
             strict = not exclude
@@ -319,6 +391,24 @@ class MaskRCNN:
             self.init_params()
         load_h5_weights(filepath, self, exclude=exclude, strict=strict)
         return self
+
+    def train(self, train_dataset, val_dataset=None, learning_rate=None,
+              epochs=1, layers="all", augment=False, **kw):
+        """Delegate to train/trainer.py ``Trainer`` (the reference's
+        model.train, model.py:2244-2330)."""
+        from slam_maskrcnn_tpu_torch.train.trainer import Trainer
+
+        if not hasattr(self, "_trainer"):
+            self._trainer = Trainer(self, self.config)
+        return self._trainer.train(train_dataset, val_dataset,
+                                   learning_rate, epochs, layers, augment,
+                                   **kw)
+
+    def find_last(self) -> str:
+        """Newest checkpoint of the newest run in model_dir
+        (model.py:2054-2077)."""
+        from slam_maskrcnn_tpu_torch.train.checkpoint import find_last
+        return find_last(self.model_dir, self.config.NAME or "model")
 
     # -- inference ----------------------------------------------------------
 

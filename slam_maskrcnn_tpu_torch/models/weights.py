@@ -46,6 +46,51 @@ def _convert(module, leaf: str, arr: np.ndarray) -> np.ndarray:
     raise TypeError(f"no kernel mapping for {type(module).__name__}")
 
 
+def flax_array(module, name: str) -> np.ndarray:
+    """The port tensor ``name`` of ``module`` as a numpy array in the Flax
+    layout: the inverse of ``_convert``."""
+    arr = _targets(module)[name].detach().cpu().numpy()
+    if name.rsplit(".", 1)[-1] != "weight":
+        return arr
+    owner = module.get_submodule(name.rsplit(".", 1)[0])
+    if isinstance(owner, ConvTranspose):
+        return np.ascontiguousarray(
+            arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1))
+    if isinstance(owner, Conv):
+        return np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+    if isinstance(owner, Dense):
+        return np.ascontiguousarray(arr.T)
+    raise TypeError(f"no kernel mapping for {type(owner).__name__}")
+
+
+def flax_path(module, name: str) -> tuple:
+    """The Flax variable path of the port tensor ``name``: (collection,
+    scope..., leaf), e.g. ("params", "resnet", "Bottleneck_0",
+    "bn2a_branch2a", "bn", "scale") or ("batch_stats", ..., "mean"). The
+    inverse of ``load_jax_params``' renaming."""
+    from slam_maskrcnn_tpu_torch.models.backbone import BatchNorm
+
+    scope, leaf = name.split(".")[:-1], name.split(".")[-1]
+    owner = module.get_submodule(".".join(scope))
+    if isinstance(owner, BatchNorm):
+        collection = "batch_stats" if leaf in ("mean", "var") else "params"
+        return (collection, *scope, "bn", leaf)
+    return ("params", *scope, {"weight": "kernel"}.get(leaf, leaf))
+
+
+def flax_variables(model) -> dict:
+    """``model.module``'s tensors as a nested dict of numpy arrays in the
+    Flax layout and tree (what ``load_jax_params`` takes)."""
+    out: dict = {}
+    for name in _targets(model.module):
+        node = out
+        *scope, leaf = flax_path(model.module, name)
+        for k in scope:
+            node = node.setdefault(k, {})
+        node[leaf] = flax_array(model.module, name)
+    return out
+
+
 def flax_shape(module, name: str) -> tuple:
     """The Flax-layout shape of the port tensor ``name`` of ``module``:
     what ``_convert`` takes to give the tensor's shape."""
@@ -87,6 +132,7 @@ def write_flax_arrays(model, arrays: dict, device):
             t.copy_(torch.from_numpy(np.array(val)).to(t.dtype))
     module.to(dev)
     model.device = dev
+    model.initialized = True
     return module
 
 

@@ -44,3 +44,22 @@ def clip_boxes(boxes: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     y2 = torch.minimum(torch.maximum(boxes[..., 2], wy1), wy2)
     x2 = torch.minimum(torch.maximum(boxes[..., 3], wx1), wx2)
     return torch.stack([y1, x1, y2, x2], dim=-1)
+
+
+def box_refinement(box: torch.Tensor, gt_box: torch.Tensor) -> torch.Tensor:
+    """Inverse of apply_box_deltas: the deltas taking box to gt_box
+    (``utils.box_refinement_graph``, utils.py:177-200), heights and widths
+    floored at 1e-8."""
+    h = box[..., 2] - box[..., 0]
+    w = box[..., 3] - box[..., 1]
+    cy = box[..., 0] + 0.5 * h
+    cx = box[..., 1] + 0.5 * w
+    gh = gt_box[..., 2] - gt_box[..., 0]
+    gw = gt_box[..., 3] - gt_box[..., 1]
+    gcy = gt_box[..., 0] + 0.5 * gh
+    gcx = gt_box[..., 1] + 0.5 * gw
+    h = h.clamp_min(1e-8)
+    w = w.clamp_min(1e-8)
+    return torch.stack([(gcy - cy) / h, (gcx - cx) / w,
+                        torch.log(gh.clamp_min(1e-8) / h),
+                        torch.log(gw.clamp_min(1e-8) / w)], dim=-1)

@@ -1,10 +1,19 @@
 """ROIAlign: bilinear crop-and-resize + FPN pyramid level routing.
 
 Port of slam_maskrcnn_tpu/ops/roi_align.py (the reference's
-``PyramidROIAlign``, model.py:350-455). ``pyramid_roi_align`` launches the
-kernel of csrc/roi_align.cu on CUDA tensors (one launch for a batch of
-images) and runs the plain version, ``pyramid_roi_align_plain``, on CPU
-tensors. Features are NHWC, as in the JAX package.
+``PyramidROIAlign``, model.py:350-455). Features are NHWC, as in the JAX
+package. Two entry points, as the JAX package has two:
+
+* ``pyramid_roi_align``, the inference graph's (the JAX
+  ``pyramid_roi_align_auto``, Pallas on the TPU): on CUDA tensors it
+  launches the kernel of csrc/roi_align.cu (one launch for a batch of
+  images) or raises, on CPU tensors it runs the plain version,
+  ``pyramid_roi_align_plain``;
+* ``pyramid_roi_align_train``, the training graph's (the jnp
+  ``pyramid_roi_align``, which the JAX training graph keeps because the
+  kernel has no gradient): torch code on every device, differentiable in
+  the features, boxes under stop-gradient. Only ``train_forward`` of
+  models/mask_rcnn.py calls it.
 """
 
 from __future__ import annotations
@@ -21,69 +30,86 @@ from slam_maskrcnn_tpu_torch.device import on_cuda
 MAX_POOL = 64
 
 
-def level_denominator(image_shape) -> float:
-    """224 / sqrt(image area) in float32, the roi_level divisor (computed
-    once on the host, shared by the kernel and the plain version)."""
+def level_scale(image_shape) -> float:
+    """The f32 multiplier of roi_level: 1 / (224 / sqrt(image area)), each
+    step rounded to float32. XLA compiles the reference's division by the
+    constant 224 / sqrt(area) into a multiplication by this reciprocal;
+    the kernel and the plain version multiply by it too."""
     area = np.float32(float(image_shape[0] * image_shape[1]))
-    return float(np.float32(224.0) / np.sqrt(area))
+    return float(np.float32(1.0) / (np.float32(224.0) / np.sqrt(area)))
 
 
-def _div(a: torch.Tensor, d: float) -> torch.Tensor:
-    """a / d rounded as IEEE division on every device: on a CUDA tensor,
-    PyTorch turns a division by a Python number into a multiplication by
-    its reciprocal (one rounding more), which the kernel does not do."""
-    return a / torch.full((), d, dtype=a.dtype, device=a.device)
+def grid_step_scale(extent: int, crop: int) -> float:
+    """The f32 constant (extent - 1) * f32(1 / (crop - 1)) of the sample
+    grid's step: XLA folds crop_and_resize's (y2 - y1) * (extent - 1) /
+    (crop - 1) into (y2 - y1) times this constant (the reference's jitted
+    graph, on every backend), and one ulp of the step decides whether a
+    box edge clipped to 1.0 samples the level's last row or reads 0."""
+    return float(np.float32(extent - 1)
+                 * (np.float32(1.0) / np.float32(crop - 1)))
 
 
 def roi_level(boxes: torch.Tensor, image_shape, min_level=2,
               max_level=5) -> torch.Tensor:
     """FPN level per roi (normalized boxes): 4 + round(log2(sqrt(h*w) /
     (224 / sqrt(image area)))), round half to even, clipped to [2, 5]
-    (model.py:375-384). Returns i64 [N]."""
+    (model.py:375-384); the division a multiplication by
+    ``level_scale``. Returns i64 [N]."""
     h = boxes[:, 2] - boxes[:, 0]
     w = boxes[:, 3] - boxes[:, 1]
-    scale = _div(torch.sqrt((h * w).clamp_min(1e-12)),
-                 level_denominator(image_shape))
+    scale = torch.sqrt((h * w).clamp_min(1e-12)) * level_scale(image_shape)
     lvl = 4 + torch.round(torch.log2(scale.clamp_min(1e-12)))
     return lvl.clamp(min_level, max_level).long()
 
 
+def sample_grid(lo: torch.Tensor, hi: torch.Tensor, size: int,
+                crop: int) -> torch.Tensor:
+    """The crop_and_resize sample coordinates along one axis, f32 [N, crop]:
+    origin + k * step with origin = lo * (size - 1) and step = (hi - lo) *
+    ``grid_step_scale``, the sum fused as XLA compiles the reference (one
+    rounding of the exact k * step + origin: computed in float64, where
+    it is exact, then rounded once; the kernel calls fmaf). For crop 1,
+    the box centre."""
+    if crop == 1:
+        return (0.5 * (lo + hi)[:, None] * (size - 1))
+    origin = (lo * (size - 1)).double()
+    step = ((hi - lo) * grid_step_scale(size, crop)).double()
+    k = torch.arange(crop, dtype=torch.float64, device=lo.device)
+    return (k[None, :] * step[:, None] + origin[:, None]).float()
+
+
 def crop_and_resize(image: torch.Tensor, boxes: torch.Tensor,
-                    crop_size: tuple[int, int]) -> torch.Tensor:
+                    crop_size: tuple[int, int],
+                    box_index: torch.Tensor | None = None) -> torch.Tensor:
     """Bilinear crop-and-resize, tf.image.crop_and_resize semantics.
 
     image [H, W, C] (any float dtype, read as float32); boxes [N, 4]
-    normalized. Returns f32 [N, ch, cw, C]; samples outside the image
-    read 0 (extrapolation_value=0)."""
-    H, W, C = image.shape
+    normalized. With ``box_index`` [N], image is a batch [B, H, W, C] and
+    box i crops image box_index[i]. Returns f32 [N, ch, cw, C]; samples
+    outside the image read 0 (extrapolation_value=0). Differentiable in
+    ``image``."""
+    H, W, C = image.shape[-3:]
     ch, cw = crop_size
     y1, x1, y2, x2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
-    dev = boxes.device
-    iy = torch.arange(ch, dtype=torch.float32, device=dev)
-    ix = torch.arange(cw, dtype=torch.float32, device=dev)
-    if ch > 1:
-        ys = (y1[:, None] * (H - 1)
-              + iy[None, :] * _div((y2 - y1) * (H - 1), ch - 1)[:, None])
-    else:
-        ys = (0.5 * (y1 + y2)[:, None] * (H - 1)).expand(-1, ch)
-    if cw > 1:
-        xs = (x1[:, None] * (W - 1)
-              + ix[None, :] * _div((x2 - x1) * (W - 1), cw - 1)[:, None])
-    else:
-        xs = (0.5 * (x1 + x2)[:, None] * (W - 1)).expand(-1, cw)
+    ys = sample_grid(y1, y2, H, ch)
+    xs = sample_grid(x1, x2, W, cw)
 
     y0 = torch.floor(ys)
     x0 = torch.floor(xs)
     # clamp before the integer cast: far-outside samples are masked below
     y0i = y0.clamp(-2, H + 1).long()
     x0i = x0.clamp(-2, W + 1).long()
-    flat = image.reshape(H * W, C)
+    flat = image.reshape(-1, C)
+    base = (0 if box_index is None
+            else (box_index.long() * (H * W))[:, None, None])
 
     def corner(dy, dx):
         yy = (y0i + dy).clamp(0, H - 1)[:, :, None]
         xx = (x0i + dx).clamp(0, W - 1)[:, None, :]
-        return flat[(yy * W + xx).reshape(-1)].reshape(
-            len(boxes), ch, cw, C).float()
+        # index_select: its gradient is an index_add (the training graph
+        # differentiates through this gather)
+        return flat.index_select(0, (base + yy * W + xx).reshape(-1)) \
+            .reshape(len(boxes), ch, cw, C).float()
 
     wy = (ys - y0)[:, :, None, None]
     wx = (xs - x0)[:, None, :, None]
@@ -95,13 +121,16 @@ def crop_and_resize(image: torch.Tensor, boxes: torch.Tensor,
     return torch.where(oob[..., None], torch.zeros_like(out), out)
 
 
-def _plain_one(features, boxes, pool_size, image_shape):
+def _plain_one(features, boxes, pool_size, image_shape, box_index=None):
+    """Every box sampled on all four levels, each keeping its own level's
+    crop. ``box_index``: the image of each box in batched features."""
     lvl = roi_level(boxes, image_shape)
     out = torch.zeros(boxes.shape[0], pool_size, pool_size,
                       features[0].shape[-1], dtype=torch.float32,
                       device=boxes.device)
     for i, feat in enumerate(features):
-        crops = crop_and_resize(feat, boxes, (pool_size, pool_size))
+        crops = crop_and_resize(feat, boxes, (pool_size, pool_size),
+                                box_index)
         out = torch.where((lvl == i + 2)[:, None, None, None], crops, out)
     return out
 
@@ -111,12 +140,25 @@ def pyramid_roi_align_plain(features, boxes: torch.Tensor, pool_size: int,
     """= ops/roi_align.pyramid_roi_align:107. One image: features (P2..P5)
     each [Hl, Wl, C], boxes [N, 4] normalized -> f32 [N, pool, pool, C]. A
     batch: features each [B, Hl, Wl, C], boxes [B, N, 4] -> f32 [B, N,
-    pool, pool, C], image by image."""
+    pool, pool, C], each box cropping its own image."""
     if boxes.dim() == 2:
         return _plain_one(features, boxes, pool_size, image_shape)
-    return torch.stack([_plain_one(tuple(f[b] for f in features), boxes[b],
-                                   pool_size, image_shape)
-                        for b in range(boxes.shape[0])])
+    B, N = boxes.shape[:2]
+    which = torch.arange(B, device=boxes.device).repeat_interleave(N)
+    out = _plain_one(features, boxes.reshape(B * N, 4), pool_size,
+                     image_shape, which)
+    return out.reshape((B, N) + out.shape[1:])
+
+
+def pyramid_roi_align_train(features, boxes: torch.Tensor, pool_size: int,
+                            image_shape) -> torch.Tensor:
+    """The training graph's PyramidROIAlign (= the jnp pyramid_roi_align,
+    roi_align.py:106-122): features (P2..P5) each [B, Hl, Wl, C], boxes
+    [B, N, 4] normalized -> f32 [B, N, pool, pool, C]. The boxes are
+    detached (model.py:427 stops their gradient); the gradient flows to
+    the features. The same torch arithmetic on every device."""
+    return pyramid_roi_align_plain(features, boxes.detach(), pool_size,
+                                   image_shape)
 
 
 def _roi_align_cuda(features, boxes, pool_size, image_shape):
@@ -160,7 +202,7 @@ def _roi_align_cuda(features, boxes, pool_size, image_shape):
     err = fn(int(dtype == torch.bfloat16), *[kernels.ptr(f) for f in feats],
              ctypes.cast((ctypes.c_int * 8)(*dims), ctypes.c_void_p),
              kernels.ptr(boxes), B, n, pool_size, C,
-             level_denominator(image_shape), kernels.ptr(out),
+             level_scale(image_shape), kernels.ptr(out),
              kernels.stream_ptr(boxes.device))
     kernels.check(err, "roi_align kernel")
     return out

@@ -69,14 +69,14 @@ class LivePipeline:
     """detect -> label-encode -> fuse (+ render every ``render_every``)."""
 
     def __init__(self, model, intrinsic, fusion_cfg=None,
-                 use_depth_filter: bool = True, render_every: int = 0,
-                 render_size=None):
+                 backend: str = "pallas", use_depth_filter: bool = True,
+                 render_every: int = 0, render_size=None):
         from slam_maskrcnn_tpu_torch.fusion.pipeline import SemanticFusion
         from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
 
         self.model = model
         self.fusion = SemanticFusion(intrinsic, fusion_cfg or FusionConfig(),
-                                     device=model.device)
+                                     backend, device=model.device)
         self.use_depth_filter = use_depth_filter
         self.render_every = render_every
         self.render_size = render_size
@@ -116,7 +116,7 @@ class LivePipeline:
 
                 H, W = self.render_size or depth.shape
                 self._viewer = Viewer(W, H, self.fusion.intrinsic,
-                                      self.fusion.cfg)
+                                      self.fusion.cfg, self.fusion.backend)
             img = self._viewer.render(self.fusion.state,
                                       0.01 * self.frames_done,
                                       self.fusion.mean_depth)
@@ -228,6 +228,9 @@ def main(argv=None):
     p.add_argument("--end", type=float, default=np.inf)
     p.add_argument("--max-frames", type=int, default=100)
     p.add_argument("--vol-dim", type=int, default=256)
+    p.add_argument("--backend", choices=["xla", "pallas"], default="pallas",
+                   help="fuse path: the CUDA kernel on a u16 histogram "
+                        "(pallas) or the dense torch fuse on a u32 one (xla)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--render-every", type=int, default=0)
     a = p.parse_args(argv)
@@ -240,7 +243,10 @@ def main(argv=None):
     seq = TUMSequence(a.dataset, begin=a.begin, end=a.end,
                       max_frames=a.max_frames)
     K = make_intrinsic(520.9, 521.0, 325.1, 249.7)
-    pipe = LivePipeline(model, K, FusionConfig(vol_dim=(a.vol_dim,) * 3),
+    cfg = FusionConfig(vol_dim=(a.vol_dim,) * 3,
+                       hist_dtype=np.uint16 if a.backend == "pallas"
+                       else np.uint32)
+    pipe = LivePipeline(model, K, cfg, a.backend,
                         render_every=a.render_every)
     return pipe.run(seq)
 

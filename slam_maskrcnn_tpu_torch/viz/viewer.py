@@ -2,8 +2,11 @@
 
 Port of slam_maskrcnn_tpu/viz/viewer.py (the reference viewer,
 ``src/SfM_CUDA/viewer.cu:137-179`` + ``kernel.cpp:101-107``): orbit the
-fused volume and render the instance-argmax (or color) view with the splat
-renderer (fusion/splat.py ``OrbitRenderer``). Headless: ``show_tsdf``
+fused volume and render the instance-argmax (or color) view: the kernel
+path's volume (backend "pallas") with the splat renderer (fusion/splat.py
+``OrbitRenderer``), the dense path's (backend "xla") with the exact ray
+march (fusion/raycast.py ``render_orbit``), as the JAX viewer renders a
+blocked state and a dense one. Headless: ``show_tsdf``
 returns the frame and opens no window (there is no cv2 where the port
 runs); ``spin(..., save_dir=...)`` writes the frames as PNGs with
 data/png.py.
@@ -23,7 +26,7 @@ from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
 
 class Viewer:
     def __init__(self, width: int, height: int, intrinsic: np.ndarray,
-                 cfg: FusionConfig | None = None):
+                 cfg: FusionConfig | None = None, backend: str = "pallas"):
         self.width = width
         self.height = height
         self.intrinsic = np.asarray(intrinsic, np.float32)
@@ -32,6 +35,7 @@ class Viewer:
             K[:3, :3] = self.intrinsic
             self.intrinsic = K
         self.cfg = cfg
+        self.backend = backend
         self._orbit, self._orbit_for = None, None
 
     def render(self, state, angle: float, dist: float,
@@ -40,6 +44,12 @@ class Viewer:
         fused volume (kernel.cpp:101-107), so the splat's shell compaction
         is cached while the volume is unchanged: the same object at the
         same ``n_obs`` (the port fuses in place, and every fuse counts)."""
+        if self.backend == "xla":
+            from slam_maskrcnn_tpu_torch.fusion.raycast import render_orbit
+            return render_orbit(state, angle, dist,
+                                np.linalg.inv(self.intrinsic), self.height,
+                                self.width, self.cfg or FusionConfig(),
+                                mode).cpu().numpy()
         key = (id(state), state.n_obs)
         if self._orbit_for != key:
             self._orbit = OrbitRenderer(state, self.intrinsic, self.height,

@@ -149,11 +149,22 @@ def test_mold_inputs_bit_equal_to_jax(jcfg):
 
 
 def test_resize_image_modes():
+    """"none" keeps the image; "crop" (training) takes the JAX package's
+    random min_dim window, drawn from numpy's global stream."""
+    from slam_maskrcnn_tpu.models.mask_rcnn import resize_image as j_resize
+
     img = np.zeros((10, 20, 3), np.uint8)
     out, window, scale, pad = resize_image(img, mode="none")
     assert window == (0, 0, 10, 20) and scale == 1.0
-    with pytest.raises(NotImplementedError, match="training"):
-        resize_image(img, 8, 8, mode="crop")
+    img = np.random.default_rng(3).integers(0, 256, (10, 20, 3), np.uint8)
+    for seed in range(4):
+        np.random.seed(seed)
+        j = j_resize(img, 8, 8, mode="crop")
+        np.random.seed(seed)
+        t = resize_image(img, 8, 8, mode="crop")
+        np.testing.assert_array_equal(t[0].numpy(), j[0])
+        assert tuple(t[1]) == tuple(j[1]) and t[2] == j[2]
+        assert t[3] == j[3] and tuple(t[4]) == tuple(j[4])
 
 
 def _fixed_detections(rng, D, n_valid, window):

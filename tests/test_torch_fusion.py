@@ -76,7 +76,7 @@ def test_semantic_fusion_matches_jax():
                          probe_mode="depth", probe_stride=2)
     tcfg = FusionConfig(vol_dim=(64,) * 3, probe_mode="depth", probe_stride=2)
     jf = JFusion(K4, jcfg, backend="pallas", miss_check_every=0)
-    tf = SemanticFusion(K4, tcfg, device="cpu")
+    tf = SemanticFusion(K4, tcfg, backend="pallas", device="cpu")
     ambiguous = np.zeros((64,) * 3, bool)
     ids = set()
     for k, fr in enumerate(frames):

@@ -47,7 +47,7 @@ def fused():
     K4 = make_intrinsic(130.0, 130.0, W / 2, H / 2)
     frames = hard_sequence(hard_scene(), K4, H, W, n_frames=16)
     cfg = FusionConfig(vol_dim=(64,) * 3)
-    fus = SemanticFusion(K4, cfg, device="cpu")
+    fus = SemanticFusion(K4, cfg, backend="pallas", device="cpu")
     trace, misses = [], 0
     for fr in frames:
         mg = fus.parse_frame(fr["depth"], fr["color"], fr["mask"],

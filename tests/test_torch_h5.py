@@ -189,7 +189,8 @@ def test_strict_failures_raise(jax_file, tmp_path):
             "bias:0", data=np.zeros((7,), np.float32))
     with pytest.raises(ValueError, match="shape mismatch for fpn_c5p5"):
         _port_tiny().load_weights(wrong)
-    with pytest.raises(NotImplementedError, match="training"):
+    # any other name is a training checkpoint (train/checkpoint.py)
+    with pytest.raises(FileNotFoundError):
         _port_tiny().load_weights(str(tmp_path / "ckpt.msgpack"))
 
 

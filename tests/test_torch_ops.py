@@ -195,18 +195,19 @@ def _roi_boxes(rng, n):
 
 @pytest.mark.parametrize("pool", [7, 14])
 def test_pyramid_roi_align_matches_jax(pool):
-    """4 levels, C = 16: atol 1e-5 against the exact f32 oracle
-    ops/roi_align.pyramid_roi_align, evaluated op by op: under jit, XLA:CPU
-    contracts the sample-grid multiply-adds into FMAs (one rounding less
-    than the port and its --fmad=false kernel)."""
+    """4 levels, C = 16: atol 1e-5 against ops/roi_align.pyramid_roi_align
+    as the JAX package runs it, jitted. XLA folds the sample grid's
+    division by (pool - 1) and the level's by 224 / sqrt(area) into
+    multiplications by f32 constants and fuses the grid's origin + k *
+    step into one rounding; the port computes the grid alike
+    (``sample_grid``)."""
     rng = np.random.default_rng(pool)
     shape = (512, 1024)
     feats = [rng.normal(0, 1, (shape[0] // s, shape[1] // s, 16))
              .astype(np.float32) for s in (4, 8, 16, 32)]
     b = _roi_boxes(rng, 120)
-    with jax.disable_jit():
-        want = np.asarray(j_roi(tuple(jnp.asarray(f) for f in feats),
-                                jnp.asarray(b), pool, shape))
+    want = np.asarray(j_roi(tuple(jnp.asarray(f) for f in feats),
+                            jnp.asarray(b), pool, shape))
     got = t_roi(tuple(torch.from_numpy(f) for f in feats),
                 torch.from_numpy(b), pool, shape).numpy()
     assert got.dtype == np.float32 and got.shape == (120, pool, pool, 16)

@@ -264,7 +264,7 @@ def test_march_oracle_matches_jax(sphere, fused):
     pos = rng.uniform(0.3, 1.7, (500, 3)).astype(np.float32) \
         * np.array([1, 1, 1], np.float32) - np.array([0.9, 0.9, 0], np.float32)
     for jv, tv, kw in ((state.diff, vol.diff, {}),
-                       (state.hist, vol.hist, dict(u16=True)),
+                       (state.hist, vol.hist, dict(unsigned=True)),
                        (state.color.astype(jnp.float32),
                         vol.color.float(), {})):
         want = jray.trilinear(jv, state.vol_start, state.voxel,
