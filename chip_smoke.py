@@ -42,6 +42,12 @@
    with several ids, then an instance render that must show both
    spheres), and the same at 64^3 on the CPU (plain versions) vs the GPU
    (kernels): state, masks, renders and probe must agree bit for bit.
+6. The trained detector and the two-stage pipeline (``pipeline_phase``),
+   training (``train_phase``) and the samples (``samples_phase``: nucleus
+   training with the Augmenter and its detect to submit.csv, mini-COCO,
+   balloon training and splash, the tracker's template match; the NMS and
+   ROIAlign kernels held at those paths' shapes), each described in its
+   function.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (a
 row's "launches" is the total of "launches_by_path", the counts of the two
@@ -1755,6 +1761,428 @@ def train_phase(dev):
     return launches, nms_extra, summary
 
 
+NUCLEUS_STEPS = 10             # f32 steps of the nucleus training config
+BALLOON_STEPS = 3              # f32 steps of the balloon training config
+NUCLEUS_IMAGES = 6             # the synthetic DSB tree (train = detect)
+MINI_COCO_IMAGES = 120         # make_mini_coco(seed 0, 128^2)
+# the JAX package's bbox AP50 on the same tree and weights, float32 on the
+# CPU (tests/jax_mini_coco_reference.py): the port's card score must be
+# within 0.02 of it
+MINI_COCO_JAX_AP50 = 0.9264377597297915
+
+
+class ShapeCalls:
+    """Keeps a copy of the inputs of the first NMS and ROIAlign launch at
+    each shape on the samples' paths: NMS keyed by (batch, n, max_output,
+    IoU), ROIAlign by (pool, batch, rois, image shape)."""
+
+    def __init__(self):
+        import slam_maskrcnn_tpu_torch.ops.nms as nms_mod
+        import slam_maskrcnn_tpu_torch.ops.roi_align as roi_mod
+        self.seen = {}
+        self.restore = [(nms_mod, "_nms_cuda", nms_mod._nms_cuda),
+                        (roi_mod, "_roi_align_cuda", roi_mod._roi_align_cuda)]
+        orig_nms, orig_roi = nms_mod._nms_cuda, roi_mod._roi_align_cuda
+
+        def nms(boxes, scores, max_output, thr, sthr):
+            key = ("nms", scores.shape[0], scores.shape[1], max_output,
+                   round(float(thr), 4))
+            if key not in self.seen:
+                self.seen[key] = (boxes.clone(), scores.clone(), max_output,
+                                  thr, sthr)
+            return orig_nms(boxes, scores, max_output, thr, sthr)
+
+        def roi(features, boxes, pool, image_shape):
+            key = ("roi_align", pool, boxes.shape[0], boxes.shape[1],
+                   tuple(image_shape))
+            if key not in self.seen:
+                self.seen[key] = (tuple(f.clone() for f in features),
+                                  boxes.clone(), pool, image_shape)
+            return orig_roi(features, boxes, pool, image_shape)
+
+        nms_mod._nms_cuda, roi_mod._roi_align_cuda = nms, roi
+
+    def close(self):
+        for mod, attr, orig in self.restore:
+            setattr(mod, attr, orig)
+
+
+def samples_phase(dev):
+    """Phase 8: the samples on the card through their entry points.
+
+    1. nucleus, training: a synthetic DSB tree, NucleusConfig at full
+       width (ResNet-50, "crop" 512^2, batch 6, 1000 training proposals
+       at IoU 0.9, 128 rois, 200 gt), f32 with TRAIN_BN, the reference
+       nucleus sample's augmentation: batches drawn on the host (timed),
+       NUCLEUS_STEPS steps of Trainer.make_step (CUDA events), every loss
+       finite; peak memory, busy share, NMS launches a step;
+    2. nucleus, detect: NucleusInferenceConfig ("pad64" at 512^2, 2000
+       proposals, up to 400 detections) with the trained tensors over the
+       tree through ``nucleus.detect``: every submit.csv line decodes back
+       (``rle_decode_kaggle``) to the overlap-removed masks;
+    3. mini-COCO: the 120-image tree, weights/shapes_r2_f16.h5 in f32
+       through ``run_protocol``: bbox AP50 >= 0.85 (and within 0.02 of
+       the JAX package's f32 CPU score when MINI_COCO_JAX_AP50 is set);
+       on 10 images the card's boxes match the CPU plain path's at IoU 0.9
+       on >= 0.9 of them;
+    4. balloon: BALLOON_STEPS f32 steps of BalloonConfig (ResNet-101,
+       "square" 1024^2, batch 2) through Trainer.train on the synthetic
+       VIA tree, then ``detect_and_color_splash`` on one PNG: the written
+       PNG equals ``color_splash`` of the same detections;
+    5. tracker: ``template_match_mask_detect`` with the trained shapes
+       model, class names mapping the shapes onto the tracker's
+       candidates: the matched location and the box equal the CPU plain
+       path's;
+    6. the NMS and ROIAlign kernels at these paths' shapes (first launch
+       of each shape) against their plain versions, timed, with bounds.
+
+    Returns (launches by path, {"nms": extra, "roi_align": extra},
+    summary)."""
+    import os
+    import shutil
+    import torch
+    from slam_maskrcnn_tpu_torch import kernels
+    from slam_maskrcnn_tpu_torch.data import augment as A
+    from slam_maskrcnn_tpu_torch.data.dataset import data_generator
+    from slam_maskrcnn_tpu_torch.data.png import read_png
+    from slam_maskrcnn_tpu_torch.models.anchors import get_anchors
+    from slam_maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from slam_maskrcnn_tpu_torch.models.targets import draw_target_noise
+    from slam_maskrcnn_tpu_torch.ops import nms as nm
+    from slam_maskrcnn_tpu_torch.ops import roi_align as ra
+    from slam_maskrcnn_tpu_torch.samples import (balloon, mask_image,
+                                                 mini_coco, nucleus)
+    from slam_maskrcnn_tpu_torch.samples.coco import CocoDataset
+    from slam_maskrcnn_tpu_torch.samples.sample_train_smoke import (
+        balloon_setup, make_nucleus_tree, nucleus_setup)
+    from slam_maskrcnn_tpu_torch.samples.train_shapes import detect_scenes
+    from slam_maskrcnn_tpu_torch.train.trainer import (LAYER_REGEX, Trainer,
+                                                       batch_to_device)
+
+    t_phase = time.time()
+    here = os.path.dirname(os.path.abspath(__file__))
+    trained = os.path.join(here, "weights", "shapes_r2_f16.h5")
+    work = os.path.join(here, "build", "samples")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    by_path, summary = {}, {}
+    calls = ShapeCalls()
+
+    def counted(path, fn):
+        torch.cuda.synchronize()
+        kernels.launches.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[path] = dict(kernels.launches.counts)
+        return out
+
+    # ---- 1. nucleus training, augmented, full width
+    cfg, ds, _, _ = nucleus_setup(os.path.join(work, "nuc"), NUCLEUS_IMAGES,
+                                  0, False)
+    aug = A.SomeOf(2, [A.Fliplr(0.5), A.Flipud(0.5),
+                       A.OneOf([A.Affine(rotate=90), A.Affine(rotate=180),
+                                A.Affine(rotate=270)]),
+                       A.Multiply((0.8, 1.5)), A.GaussianBlur((0.0, 5.0))])
+    B, P = cfg.BATCH_SIZE, cfg.POST_NMS_ROIS_TRAINING
+    np.random.seed(0)
+    gen = data_generator(ds, cfg, seed=0, augmentation=aug)
+    t0 = time.time()
+    host = [next(gen) for _ in range(NUCLEUS_STEPS + 2)]
+    data_ms = (time.time() - t0) * 1e3 / len(host)
+    anchors = torch.from_numpy(get_anchors(cfg, cfg.IMAGE_SHAPE)).to(dev)
+    batches = [dict(batch_to_device(h, dev), anchors=anchors) for h in host]
+    n_gt = [int((h["gt_class_ids"] > 0).sum()) for h in host]
+    log(f"[samples] nucleus: {len(host)} augmented batches of {B} "
+        f"(512^2 crops) drawn on the host in {data_ms:.1f} ms a batch; gt "
+        f"per batch {n_gt}; {anchors.shape[0]} anchors")
+    model = MaskRCNN("training", cfg, device=dev)
+    model.init_params(0)
+    step = Trainer(model).make_step(1e-3, LAYER_REGEX["all"])
+    noise = torch.Generator(device=dev).manual_seed(0)
+
+    def run(lo, hi, losses):
+        for b in batches[lo:hi]:
+            pn, nn_ = draw_target_noise(B, P, noise, dev)
+            losses.append(step(b, pn, nn_)[0])
+
+    warm = []
+    run(0, 2, warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def timed():
+        start.record()
+        run(2, 2 + NUCLEUS_STEPS, losses)
+        end.record()
+    counted("nucleus_train", timed)
+    step_ms = start.elapsed_time(end) / NUCLEUS_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = np.array([float(x) for x in warm + losses])
+    check(np.isfinite(hist).all(), f"nucleus training losses {hist}")
+    nms_step = by_path["nucleus_train"]["nms"] / NUCLEUS_STEPS
+    log(f"[samples] nucleus training (f32, TRAIN_BN, batch {B}): "
+        f"{step_ms:.2f} ms a step, peak {peak:.2f} GiB, loss {hist[0]:.3f} "
+        f"-> {hist[-1]:.3f}, {nms_step:.0f} NMS launch a step, launches "
+        f"{by_path['nucleus_train']}")
+    busy = profile_run(lambda: run(2, 5, []), 3, "nucleus training step")
+    summary["nucleus_train"] = dict(
+        step_ms=step_ms, peak_gib=peak, busy_share=busy,
+        host_ms_per_augmented_batch=data_ms, nms_per_step=nms_step,
+        loss_first=float(hist[0]), loss_last=float(hist[-1]),
+        steps=len(hist))
+    del batches, host, step
+    torch.cuda.empty_cache()
+
+    # ---- 2. nucleus detect -> submit.csv, with the trained tensors
+    icfg = nucleus.NucleusInferenceConfig()
+    inf = MaskRCNN("inference", icfg, device=dev)
+    inf.module.load_state_dict(model.module.state_dict())
+    inf.module.to(dev)
+    inf.initialized = True
+    del model
+    torch.cuda.empty_cache()
+    made = []
+    detect0 = inf.detect
+
+    def recording(images, verbose=0):
+        r = detect0(images, verbose)
+        made.extend(r)
+        return r
+    inf.detect = recording
+    inf.detect([ds.load_image(0)])                       # warm-up
+    made.clear()
+    t0 = time.time()
+    path = counted("nucleus_detect", lambda: nucleus.detect(
+        inf, os.path.join(work, "nuc"), "stage1_train",
+        os.path.join(work, "nuc_out")))
+    t_det = time.time() - t0
+    with open(path) as f:
+        lines = f.read().splitlines()
+    check(lines[0] == "ImageId,EncodedPixels", "submit.csv header")
+    rows_by_image = {}
+    for ln in lines[1:]:
+        iid, enc = ln.split(",", 1)
+        rows_by_image.setdefault(iid, []).append(enc.strip())
+    n_lines, n_det = 0, 0
+    for i, r in zip(ds.image_ids, made):
+        iid = ds.image_info[i]["id"]
+        masks, scores = r["masks"], r["scores"]
+        n_det += masks.shape[-1]
+        if masks.shape[-1] == 0:
+            check(rows_by_image[iid] == [""], f"submit {iid}: empty")
+            continue
+        order = np.argsort(scores)[::-1] + 1
+        m = np.max(masks * np.reshape(order, (1, 1, -1)), -1)
+        check(len(rows_by_image[iid]) == len(order), f"submit {iid} lines")
+        for enc, o in zip(rows_by_image[iid], order):
+            check(np.array_equal(nucleus.rle_decode_kaggle(enc, m.shape),
+                                 m == o), f"submit {iid}: a line does not "
+                                          f"decode to its mask")
+            n_lines += 1
+    log(f"[samples] nucleus detect ({len(made)} images, pad64 512^2, up to "
+        f"{icfg.DETECTION_MAX_INSTANCES} detections): {n_det} detections, "
+        f"{n_lines} submit.csv lines, each decoding to its overlap-removed "
+        f"mask; {t_det * 1e3 / len(made):.1f} ms an image incl. the RLE, "
+        f"launches {by_path['nucleus_detect']}")
+    summary["nucleus_detect"] = dict(images=len(made), detections=n_det,
+                                     lines=n_lines,
+                                     ms_per_image=t_det * 1e3 / len(made))
+    del inf, made
+    torch.cuda.empty_cache()
+
+    # ---- 3. mini-COCO: the 120-image tree, the trained shapes model, f32
+    mdir = os.path.join(work, "mini")
+    mini_coco.make_mini_coco(mdir, MINI_COCO_IMAGES, 128, seed=0)
+    mds = CocoDataset()
+    mds.load_coco(mdir, "val", "2014")
+    mds.prepare()
+
+    class MiniF32(mini_coco.MiniCocoConfig):
+        COMPUTE_DTYPE = "float32"
+    m32 = MaskRCNN("inference", MiniF32(), device=dev).load_weights(trained)
+    m32.detect([mds.load_image(0)])
+    card = {}
+
+    def get_result(i):
+        card[i] = m32.detect([mds.load_image(i)])[0]
+        return card[i]
+    t0 = time.time()
+    stats = counted("mini_coco", lambda: mini_coco.run_protocol(
+        mds, get_result, verbose=False))
+    t_mc = time.time() - t0
+    ap50 = stats["bbox"]["ap50"]
+    cpu = MaskRCNN("inference", MiniF32(), device="cpu").load_weights(trained)
+    matched = n_cpu = 0
+    t0 = time.time()
+    for i in mds.image_ids[:10]:
+        a = cpu.detect([mds.load_image(i)])[0]
+        b = card[i]
+        k, _ = match_detections(a["rois"], a["class_ids"], a["scores"],
+                                b["rois"], b["class_ids"], b["scores"], 0.9)
+        matched, n_cpu = matched + k, n_cpu + len(a["rois"])
+    t_cpu = time.time() - t0
+    frac = matched / max(n_cpu, 1)
+    log(f"[samples] mini-COCO ({MINI_COCO_IMAGES} images, 128^2, f32): "
+        f"bbox AP {stats['bbox']['ap']:.4f} AP50 {ap50:.4f} AP75 "
+        f"{stats['bbox']['ap75']:.4f}; segm AP {stats['segm']['ap']:.4f} "
+        f"AP50 {stats['segm']['ap50']:.4f} AP75 {stats['segm']['ap75']:.4f}; "
+        f"compute_ap@50 {stats['compute_ap50_mean']:.4f}; {t_mc:.1f} s; box "
+        f"match to the CPU plain path on 10 images {matched}/{n_cpu} = "
+        f"{frac:.4f} ({t_cpu:.1f} s on the CPU); launches "
+        f"{by_path['mini_coco']}")
+    check(ap50 >= 0.85, f"mini-COCO bbox AP50 {ap50} < 0.85")
+    if MINI_COCO_JAX_AP50 is not None:
+        check(abs(ap50 - MINI_COCO_JAX_AP50) <= 0.02,
+              f"mini-COCO bbox AP50 {ap50} vs the JAX package's "
+              f"{MINI_COCO_JAX_AP50}")
+    check(frac >= 0.9, f"mini-COCO card vs CPU box match {frac}")
+    summary["mini_coco"] = dict(
+        bbox={k: stats["bbox"][k] for k in ("ap", "ap50", "ap75")},
+        segm={k: stats["segm"][k] for k in ("ap", "ap50", "ap75")},
+        compute_ap50=stats["compute_ap50_mean"], seconds=t_mc,
+        box_match_cpu=frac, jax_ap50=MINI_COCO_JAX_AP50)
+    del cpu, card
+
+    # ---- 5. the tracker's template match with the trained shapes model
+    # (before balloon: it reuses the f32 model of 3)
+    # committed scene 5 (a circle): the previous frame's crop is the
+    # circle's box and 6 px around it, the new frame that scene shifted by
+    # (3, -2) px
+    img, gt_boxes = detect_scenes()[5][:2]
+    y1, x1, y2, x2 = (int(v) for v in gt_boxes[0])
+    y1, x1 = max(y1 - 6, 0), max(x1 - 6, 0)       # the shape and its edge
+    y2, x2 = min(y2 + 6, img.shape[0]), min(x2 + 6, img.shape[1])
+    prev = np.ascontiguousarray(img[y1:y2, x1:x2])
+    nxt = np.ascontiguousarray(np.roll(img, (3, -2), (0, 1)))
+    names = ["BG", "bottle", "cup", "vase"]
+    res = {}
+    cpu = MaskRCNN("inference", MiniF32(), device="cpu").load_weights(trained)
+    for d, m in (("cpu", cpu), ("cuda", m32)):
+        loc = mask_image.max_location(mask_image.match_template(
+            nxt, prev, m.device))
+        if d == "cuda":
+            r = counted("tracker", lambda: mask_image.
+                        template_match_mask_detect(m, nxt, prev, None,
+                                                   names))
+        else:
+            r = mask_image.template_match_mask_detect(m, nxt, prev, None,
+                                                      names)
+        res[d] = (loc, r)
+    (lc, rc), (lg, rg) = res["cpu"], res["cuda"]
+    check(rc is not None and rg is not None, "tracker: no target found")
+    check(lc == lg == (x1 - 2, y1 + 3),
+          f"tracker location card {lg} vs CPU {lc}, shifted to "
+          f"{(x1 - 2, y1 + 3)}")
+    check(np.array_equal(rc["box"], rg["box"])
+          and rc["class_id"] == rg["class_id"],
+          f"tracker box card {rg['box']} vs CPU {rc['box']}")
+    log(f"[samples] tracker: template of {prev.shape[:2]} found at {lg} on "
+        f"the card and the CPU; box {rg['box'].tolist()} "
+        f"({names[rg['class_id']]}, score {rg['score']:.4f}) equal; "
+        f"launches {by_path['tracker']}")
+    summary["tracker"] = dict(location=list(lg), box=rg["box"].tolist())
+    del cpu, m32
+    torch.cuda.empty_cache()
+
+    # ---- 4. balloon: training steps at full width, then the splash
+    bcfg, bds, _, binf = balloon_setup(os.path.join(work, "balloon"), 4, 0,
+                                       False)
+    bm = MaskRCNN("training", bcfg, device=dev)
+    bm.init_params(0)
+    splash_in = os.path.join(work, "balloon", "train", "b0.png")
+    made = []
+
+    def balloon_path():
+        np.random.seed(0)
+        hist = Trainer(bm, bcfg).train(bds, epochs=1, layers="all",
+                                       steps_per_epoch=BALLOON_STEPS,
+                                       checkpoint=False, verbose=0)
+        inf = MaskRCNN("inference", binf, device=dev)
+        inf.module.load_state_dict(bm.module.state_dict())
+        inf.module.to(dev)
+        inf.initialized = True
+        detect0 = inf.detect
+        inf.detect = lambda images, verbose=0: made.extend(
+            detect0(images, verbose)) or made[-len(images):]
+        out = balloon.detect_and_color_splash(inf, image_path=splash_in,
+                                              out_dir=work)
+        return hist, out
+    t0 = time.time()
+    bhist, out = counted("balloon", balloon_path)
+    t_b = time.time() - t0
+    check(np.isfinite(bhist).all(), f"balloon losses {bhist}")
+    src = np.ascontiguousarray(read_png(splash_in)[:, :, ::-1])
+    want = balloon.color_splash(src, made[0]["masks"])
+    got = read_png(out)[:, :, ::-1]
+    check(np.array_equal(got, want), "balloon splash PNG != color_splash")
+    log(f"[samples] balloon: {BALLOON_STEPS} f32 steps (ResNet-101, 1024^2, "
+        f"batch 2), mean loss {bhist[0]:.3f}, then the splash of "
+        f"{os.path.basename(splash_in)} ({made[0]['masks'].shape[-1]} "
+        f"detections) equal to color_splash; {t_b:.1f} s; launches "
+        f"{by_path['balloon']}")
+    summary["balloon"] = dict(loss=float(bhist[0]), seconds=t_b,
+                              detections=int(made[0]["masks"].shape[-1]))
+    del bm, made
+    calls.close()
+    torch.cuda.empty_cache()
+
+    # ---- 6. the kernels at the samples' shapes against their plain
+    # versions, timed, with bounds
+    nms_rows, roi_rows = {}, {}
+    for key in sorted(k for k in calls.seen if k[0] == "nms"):
+        b, s, cap, thr, sthr = calls.seen[key]
+        ki, kv = nm._nms_cuda(b, s, cap, thr, sthr)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        plain = [nm.non_max_suppression_plain(b[i], s[i], cap, thr, sthr)
+                 for i in range(s.shape[0])]
+        torch.cuda.synchronize()
+        t_p = (time.time() - t0) * 1e3
+        for i, (pi, pv) in enumerate(plain):
+            check(torch.equal(ki[i], pi) and torch.equal(kv[i], pv),
+                  f"samples nms {key} image {i}: kernel != plain")
+        t_k = cuda_time_ms(lambda: nm._nms_cuda(b, s, cap, thr, sthr), 10)
+        sel = kv.sum(1)
+        n = s.shape[1]
+        bms, by = bound_ms(s.shape[0] * (n * 20 + cap * 5),
+                           int((sel + 1).sum()) * n * 12)
+        name = f"batch{key[1]}_n{n}_out{cap}_iou{key[4]}"
+        nms_rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bms,
+                              bound_by=by, max_abs_err=0.0,
+                              selections=sel.tolist())
+        log(f"[samples] nms {name}: equal to the plain version in every "
+            f"image; kernel {t_k:.4f} ms, plain {t_p:.1f} ms, bound "
+            f"{bms:.5f} ms ({by}), selections {sel.tolist()}")
+    for key in sorted(k for k in calls.seen if k[0] == "roi_align"):
+        feats, boxes, p, shape = calls.seen[key]
+        k_ = ra._roi_align_cuda(feats, boxes, p, shape)
+        pl = ra.pyramid_roi_align_plain(feats, boxes, p, shape)
+        err = float((k_ - pl).abs().max())
+        check(err <= 1e-4, f"samples roi_align {key}: err {err}")
+        t_k = device_ms(lambda: ra._roi_align_cuda(feats, boxes, p, shape))
+        t_p = cuda_time_ms(lambda: ra.pyramid_roi_align_plain(
+            feats, boxes, p, shape), 2)
+        n_out = boxes.shape[0] * boxes.shape[1] * p * p * feats[0].shape[-1]
+        bms, by = bound_ms(roi_read_bytes(feats, boxes, p, shape)
+                           + boxes.numel() * 4 + n_out * 4, n_out * 11)
+        name = (f"pool{p}_batch{boxes.shape[0]}_rois{boxes.shape[1]}_"
+                f"{feats[0].shape[1] * 4}px_{str(feats[0].dtype)[6:]}")
+        roi_rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bms,
+                              bound_by=by, max_abs_err=err)
+        log(f"[samples] roi_align {name}: max |kernel - plain| {err:.3e}; "
+            f"kernel {t_k:.4f} ms (device), plain {t_p:.3f} ms, bound "
+            f"{bms:.5f} ms ({by})")
+        del k_, pl
+    del calls
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    summary["seconds"] = time.time() - t_phase
+    log(f"[samples] phase took {summary['seconds']:.1f} s")
+    return by_path, {"nms": nms_rows, "roi_align": roi_rows}, summary
+
+
 def main() -> int:
     try:
         import torch
@@ -1804,12 +2232,15 @@ def main() -> int:
         rows[k]["pipeline_max_abs_err"] = c["max_abs_err"]
     t_launches, nms_extra, t_summary = train_phase(dev)
     rows["nms"].update(nms_extra)
+    s_paths, s_rows, s_summary = samples_phase(dev)
+    for k, extra in s_rows.items():
+        rows[k]["samples"] = extra
 
     # launches: each path was counted from 0 on its own (launches_by_path);
     # "launches" is their total. Every kernel of a path must have launched
     # in that path's run.
     by_path = {"step": launches, "paired_chunk": c_launches, **p_paths,
-               "train": t_launches}
+               "train": t_launches, **s_paths}
     on_path = {"step": ("fuse", "nms", "roi_align"),
                "paired_chunk": ("fuse_pair", "nms", "roi_align"),
                "detect": ("nms", "roi_align"),
@@ -1817,7 +2248,12 @@ def main() -> int:
                "fusion_demo": ("fuse",),
                "live_device": ("fuse", "nms", "roi_align"),
                "live_host": ("fuse", "nms", "roi_align"),
-               "train": ("nms",)}
+               "train": ("nms",),
+               "nucleus_train": ("nms",),
+               "nucleus_detect": ("nms", "roi_align"),
+               "mini_coco": ("nms", "roi_align"),
+               "balloon": ("nms", "roi_align"),
+               "tracker": ("nms", "roi_align")}
     for path, names in on_path.items():
         check(all(by_path[path][k] > 0 for k in names),
               f"a kernel of the {path} path was never launched: "
@@ -1838,6 +2274,8 @@ def main() -> int:
     log(json.dumps({"stage2_xla": dict(s2_summary, card=smi)}))
     log(json.dumps({"train": dict(t_summary, launches=t_launches,
                                   card=smi)}))
+    log(json.dumps({"samples": dict(s_summary, launches=s_paths,
+                                    card=smi)}))
     log(f"[total] {time.time() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [rows[k] for k in (

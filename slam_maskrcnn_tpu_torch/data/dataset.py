@@ -16,8 +16,8 @@ models/mask_rcnn.py ``resize_image`` (cv2's INTER_LINEAR, ops/resize.py),
 ``resize_mask`` with cv2's INTER_NEAREST index rule, ``minimize_mask``
 through ops/resize.py, and ``Dataset.load_image`` reads PNG files with
 data/png.py (there is no JPEG decoder). The ``Augmenter`` of
-data/augment.py (cv2's warpAffine and GaussianBlur) is not ported yet:
-``augmentation=`` raises.
+data/augment.py is applied where the JAX package applies it, after
+molding, to the image and the masks together.
 """
 
 from __future__ import annotations
@@ -196,14 +196,10 @@ def load_image_gt(dataset: Dataset, config, image_id, augment=False,
     `augment`: legacy coin-flip fliplr (deprecated in the reference too,
     model.py:1233-1240). `augmentation`: an Augmenter object
     (data/augment.py — the imgaug-hook equivalent of model.py:1241-1270);
-    applied image+mask consistently, masks with nearest interpolation.
-    The Augmenter is not ported yet: ``augmentation`` raises."""
+    applied image+mask consistently, masks with nearest interpolation,
+    with ``rng`` (a numpy Generator) drawing its parameters."""
     from slam_maskrcnn_tpu_torch.models.mask_rcnn import resize_image
 
-    if augmentation is not None:
-        raise NotImplementedError(
-            "augmentation= needs the Augmenter of data/augment.py (cv2's "
-            "warpAffine and GaussianBlur), which the port has not yet")
     image = dataset.load_image(image_id)
     mask, class_ids = dataset.load_mask(image_id)
     original_shape = image.shape
@@ -223,6 +219,8 @@ def load_image_gt(dataset: Dataset, config, image_id, augment=False,
     if augment and (rng or np.random).random() < 0.5:
         image = np.fliplr(image)
         mask = np.fliplr(mask)
+    if augmentation is not None and mask.shape[-1] > 0:
+        image, mask = augmentation(image, mask, rng)
 
     # drop empty masks (from cropping)
     keep = np.where(mask.any(axis=(0, 1)))[0]
@@ -257,12 +255,9 @@ def data_generator(dataset: Dataset, config, shuffle=True, augment=False,
     model.py:1635-1805). Yields dicts of fixed-shape numpy arrays:
     images, rpn_match [B,A], rpn_bbox [B,A,4] (anchor-aligned),
     gt_class_ids [B,G], gt_boxes [B,G,4] normalized, gt_masks [B,G,h,w],
-    active_class_ids [B,C], windows [B,4] normalized. ``augmentation``
-    raises (the Augmenter is not ported yet)."""
-    if augmentation is not None:
-        raise NotImplementedError(
-            "augmentation= needs the Augmenter of data/augment.py (cv2's "
-            "warpAffine and GaussianBlur), which the port has not yet")
+    active_class_ids [B,C], windows [B,4] normalized. ``augmentation``:
+    an Augmenter (data/augment.py), drawing from the generator's own
+    ``np.random.default_rng(seed)``."""
     batch_size = batch_size or config.BATCH_SIZE
     rng = np.random.default_rng(seed)
     anchors_norm = get_anchors(config, config.IMAGE_SHAPE)

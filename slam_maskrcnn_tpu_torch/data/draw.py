@@ -12,13 +12,16 @@ three calls in numpy, pixel for pixel (OpenCV's drawing.cpp):
   outline drawn by the 8-connected ``LineIterator`` (Bresenham, ends
   clipped by ``clipLine``), edges in 16.16 fixed point from the clipped
   ends, scanlines filled from the left edge rounded up to the right edge
-  rounded down.
+  rounded down. An edge with an end outside the image takes the x of its
+  clipped ends; where those ends share a row (the edge only touches the
+  image, or lies outside it), it keeps its own rows and so runs
+  vertically at the border: OpenCV 5 paints the part of a polygon beyond
+  the left or right border onto the border column that way.
 
-``rectangle`` and ``circle`` equal OpenCV 5's anywhere, clipped or not.
-``fill_poly`` equals it on the dataset's triangles, those clipped at the
-image border included (tests/test_torch_shapes.py); a polygon that lies
-mostly outside the image can differ in the border column, where OpenCV 5
-paints the part beyond the border onto it.
+All three equal OpenCV 5's anywhere, clipped or not: ``fill_poly`` on
+concave and self-intersecting polygons of up to 80 vertices lying partly
+or mostly outside the image (tests/test_torch_shapes.py,
+tests/test_torch_augment.py).
 
 Each draws in place into a u8 [H, W] or [H, W, C] array and returns it;
 ``color`` is a number or a sequence of C numbers.
@@ -190,11 +193,13 @@ def fill_poly(img: np.ndarray, pts, color) -> np.ndarray:
             pt0c, pt1c = list(pt0), list(pt1)
             if not (0 <= t0[0] < W and 0 <= t1[0] < W and 0 <= t0[1] < H
                     and 0 <= t1[1] < H):
-                # the edge from the clipped ends, where they still span rows
+                # the edge's x from the clipped ends, its rows from them
+                # where they still span rows (else it runs vertically at
+                # the border)
                 _, c0, c1 = clip_line(W, H, t0, t1)
+                pt0c[0], pt1c[0] = c0[0] << XY_SHIFT, c1[0] << XY_SHIFT
                 if c0[1] != c1[1]:
-                    pt0c = [c0[0] << XY_SHIFT, c0[1]]
-                    pt1c = [c1[0] << XY_SHIFT, c1[1]]
+                    pt0c[1], pt1c[1] = c0[1], c1[1]
             if pt0[1] != pt1[1]:
                 dx = _c_div(pt1c[0] - pt0c[0], pt1c[1] - pt0c[1])
                 if pt0[1] < pt1[1]:

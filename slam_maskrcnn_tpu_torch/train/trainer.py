@@ -164,8 +164,8 @@ class Trainer:
               verbose=1, checkpoint=True, augmentation=None):
         """= MaskRCNN.train (model.py:2244-2330). layers: a regex or one of
         heads|3+|4+|5+|all. Trains from self.epoch to ``epochs``; returns
-        the mean loss of each epoch. ``augmentation`` raises (the
-        Augmenter is not ported yet)."""
+        the mean loss of each epoch. ``augmentation``: an Augmenter of
+        data/augment.py, applied to every training image."""
         from slam_maskrcnn_tpu_torch.data.dataset import data_generator
 
         cfg = self.config

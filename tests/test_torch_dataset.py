@@ -93,10 +93,24 @@ def test_data_generator_error_skip(caplog):
 
 
 def test_augmentation_raises():
-    _, tcfg = _cfgs()
-    _, td = _pair(2, 0)
-    with pytest.raises(NotImplementedError, match="Augmenter"):
-        next(tds.data_generator(td, tcfg, augmentation=lambda *a: a))
+    """An augmentation that changes the image's shape fails the
+    Augmenter's shape check (model.py:1263-1265) on every image; as in
+    the JAX package, the generator skips 5 and raises on the 6th."""
+    from slam_maskrcnn_tpu.data.augment import Augmenter as JAugmenter
+    from slam_maskrcnn_tpu_torch.data.augment import Augmenter
+
+    def crop(cls):
+        class Crop(cls):
+            def apply_image(self, image, params):
+                return image[1:]
+        return Crop()
+
+    jcfg, tcfg = _cfgs()
+    jd, td = _pair(2, 0)
+    for gen in (jds.data_generator(jd, jcfg, augmentation=crop(JAugmenter)),
+                tds.data_generator(td, tcfg, augmentation=crop(Augmenter))):
+        with pytest.raises(AssertionError, match="must not change shape"):
+            next(gen)
 
 
 def test_load_image_gt_crop_mode_matches_jax():
