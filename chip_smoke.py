@@ -48,6 +48,12 @@
    balloon training and splash, the tracker's template match; the NMS and
    ROIAlign kernels held at those paths' shapes), each described in its
    function.
+7. The multi-rank paths (``sharded_phase``): two gloo ranks on the one
+   card, spawned by parallel/sharding.py ``launch``: the fuse kernel on an
+   x-slab at a nonzero offset against its plain version, the
+   volume-sharded fuse at 512^3 bit-equal to one rank (and the fuse
+   kernel launched on every rank's slab), its render within 1% of one
+   rank's, the data-parallel training step equal to one rank's.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (a
 row's "launches" is the total of "launches_by_path", the counts of the two
@@ -1517,7 +1523,7 @@ def pipeline_phase(dev):
         err = max(err, float((k - pl).abs().max()))
     check(err <= 1e-4, f"pipeline roi_align err {err}")
     checks["roi_align"] = dict(max_abs_err=err)
-    vol, depth, color, mask, params = first.seen["fuse"]
+    vol, depth, color, mask, params = first.seen["fuse"][:5]
     other = vol.clone()
     fz._fuse_cuda(vol, depth, color, mask, params)
     fz.fuse_frame_plain(other, depth, color, mask, params)
@@ -2183,6 +2189,529 @@ def samples_phase(dev):
     return by_path, {"nms": nms_rows, "roi_align": roi_rows}, summary
 
 
+SHARD_VOL = (512, 512, 512)    # the north-star volume, u16 histogram
+SHARD_FRAMES = 8               # fused frames of hard_sequence (+ 1 init)
+SHARD_RANKS = 2                # ranks on the one card, over gloo
+# per-slab splat budgets of the sharded probe and the render: none may
+# overflow at one rank, so that one rank and two fuse the same votes
+SHARD_BUDGETS = dict(max_blocks=16384, max_rows=65536,
+                     max_surface=1 << 22)
+SHARD_ANGLE = 0.3              # the orbit view of the sharded render
+DP_STEPS = 5                   # timed data-parallel steps after the check
+
+
+def _span():
+    """(start, stop, elapsed ms) of a span timed by CUDA events."""
+    import torch
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    return a.record, b.record, lambda: a.elapsed_time(b)
+
+
+def _sha(t) -> str:
+    """sha256 of a tensor's bytes, read back in 256 MiB pieces."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    flat = t.contiguous().view(torch.uint8).reshape(-1)
+    step = 1 << 28
+    for i in range(0, flat.numel(), step):
+        h.update(flat[i:i + step].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _state_digest(vol) -> dict:
+    import torch
+    return dict(sha256={f: _sha(getattr(vol, f))
+                        for f in ("diff", "color", "weight", "hist")},
+                fused_voxels=int((vol.weight > 0).sum()),
+                hist_votes=int((vol.hist.to(torch.int32) & 0xFFFF)
+                               .sum(dtype=torch.int64)))
+
+
+def _shard_cfg(vol_dim):
+    from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
+    return FusionConfig(vol_dim=tuple(vol_dim), hist_dtype=np.uint16,
+                        splat_max_blocks=SHARD_BUDGETS["max_blocks"],
+                        splat_max_rows=SHARD_BUDGETS["max_rows"],
+                        splat_max_surface=1 << 20)
+
+
+def _stage(frames, dev):
+    """frames[1:] as (depth, color, mask) on ``dev`` and each frame's
+    extrinsic composed with the first frame's inverse."""
+    import torch
+    E0i = np.linalg.inv(frames[0]["extrinsic"]).astype(np.float32)
+    return [(torch.from_numpy(f["depth"]).to(dev),
+             torch.from_numpy(f["color"]).to(dev),
+             torch.from_numpy(f["mask"]).to(dev),
+             (f["extrinsic"] @ E0i).astype(np.float32))
+            for f in frames[1:]]
+
+
+def one_card_fusion(frames, K4, vol_dim, dev):
+    """The port's one-card ``fusion_step`` with the splat probe in the
+    sharded step's form (its budgets, no row cap) over the frames of
+    ``sharded_fuse_rank``: the state's digest, the relabeled masks,
+    num_objs and the misses."""
+    import dataclasses
+    import torch
+    from slam_maskrcnn_tpu_torch.fusion.fuse import init_from_first_frame
+    from slam_maskrcnn_tpu_torch.fusion.pipeline import fusion_step
+
+    cfg = dataclasses.replace(_shard_cfg(vol_dim), probe_mode="splat",
+                              splat_max_surface=SHARD_BUDGETS["max_surface"],
+                              splat_row_cap=0)
+    vol = init_from_first_frame(cfg, frames[0]["depth"], K4,
+                                frames[0]["mean_depth"], device=dev)
+    masks, misses = [], []
+    for d, c, m, e in _stage(frames, dev):
+        vol, mask_g, miss = fusion_step(vol, d, c, m, e, K4, cfg)
+        masks.append(mask_g)
+        misses.append(miss)
+    out = dict(_state_digest(vol), masks=torch.stack(masks).cpu().numpy(),
+               misses=[int(x) for x in misses], num_objs=int(vol.num_objs))
+    del vol
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_fuse_rank(mesh, frames, K4, dist, vol_dim):
+    """One rank of the volume-sharded fuse (also run by the parent on a
+    mesh of one): this rank's slab of the ``vol_dim`` volume initialized
+    from frames[0], the other frames fused through
+    make_sharded_fusion_step with K1 launches counted from 0. The first
+    two frames warm the process up. The next (frames - 3) / 2 run with
+    every collective timed on the host between two synchronizations
+    (``collective_ms`` and ``collective_calls`` a frame, and
+    ``frame_ms_synced`` by CUDA events, which includes those
+    synchronizations); the ones after them but the last are timed by
+    CUDA events alone (``frame_ms``). The last one is untimed, and on a
+    slab at x0 > 0 its K1 launch is held against the plain version
+    (``fuse_frame_plain`` and ``brick_classes_plain`` at that x0, same
+    parameters, on a copy of the slab taken before the launch);
+    ``peak_gib`` is read before it. Then the sharded render of both
+    modes, the slabs gathered on rank 0 and each field's sha256 there."""
+    import torch
+    from slam_maskrcnn_tpu_torch import kernels
+    from slam_maskrcnn_tpu_torch.fusion import fuse as fz
+    from slam_maskrcnn_tpu_torch.fusion.splat import splat_render_orbit
+    from slam_maskrcnn_tpu_torch.parallel import sharding as sh
+
+    dev = mesh.device
+    kernels.lib("fuse")                 # built by the parent: loaded here
+    cfg = _shard_cfg(vol_dim)
+    d0 = frames[0]["depth"]
+    H, W = d0.shape
+    full = fz.init_from_first_frame(cfg, d0, K4, frames[0]["mean_depth"],
+                                    device=dev)
+    vol = sh.shard_volume_state(full, mesh)
+    del full
+    torch.cuda.empty_cache()
+    staged = _stage(frames, dev)
+    step = sh.make_sharded_fusion_step(cfg, mesh, **SHARD_BUDGETS)
+    coll = {"ms": 0.0, "calls": 0}
+    orig = sh.all_reduce, sh.broadcast, fz._fuse_cuda
+    held = {}
+
+    def synced(fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize(dev)
+            coll["ms"] += (time.perf_counter() - t0) * 1e3
+            coll["calls"] += 1
+            return out
+        return wrapped
+
+    def fuse_held(vol, depth, color, mask, params, x0=0):
+        """K1 on the slab, then the plain version on a copy taken before."""
+        plain = vol.clone()
+        cls_k = orig[2](vol, depth, color, mask, params, x0)
+        fz.fuse_frame_plain(plain, depth, color, mask, params, x0=x0)
+        cls_p = fz.brick_classes_plain(plain, params,
+                                       *fz.depth_tiles_plain(depth), H, W,
+                                       x0=x0)
+        held.update(
+            x0=x0, slab=list(vol.diff.shape),
+            classes_equal=bool(torch.equal(cls_k, cls_p)),
+            equal={f: bool(torch.equal(getattr(vol, f), getattr(plain, f)))
+                   for f in ("color", "weight", "hist")},
+            max_abs_err=float((vol.diff - plain.diff).abs().max()),
+            fused=int((plain.weight > 0).sum()))
+        del plain
+        return cls_k
+
+    x0 = mesh.rank * vol.diff.shape[0]
+    # frames 0 and 1 warm the process up (frame 0 has nothing to probe,
+    # so the probe and the collectives first run on frame 1); then n_sync
+    # synced frames, the rest timed as they run, and the last one held
+    # against the plain version
+    n_sync = (len(staged) - 3) // 2
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    kernels.launches.reset()
+    masks, misses, spans, synced_spans = [], [], [], []
+    try:
+        for i, (d, c, m, e) in enumerate(staged):
+            last = i == len(staged) - 1
+            if i == 2:
+                sh.all_reduce, sh.broadcast = synced(orig[0]), synced(orig[1])
+            if i == 2 + n_sync:
+                sh.all_reduce, sh.broadcast = orig[:2]
+            if last:
+                torch.cuda.synchronize(dev)
+                peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                if x0 > 0:
+                    fz._fuse_cuda = fuse_held
+            start, stop, ms = _span()
+            start()
+            vol, mask_g, miss = step(vol, d, c, m, e, K4)
+            stop()
+            if 2 <= i < 2 + n_sync:
+                synced_spans.append(ms)
+            elif 2 + n_sync <= i < len(staged) - 1:
+                spans.append(ms)
+            masks.append(mask_g)
+            misses.append(miss)
+        torch.cuda.synchronize(dev)
+    finally:
+        sh.all_reduce, sh.broadcast, fz._fuse_cuda = orig
+    launches = dict(kernels.launches.counts)
+    out = dict(rank=mesh.rank, x0=x0, frame_ms=[ms() for ms in spans],
+               frame_ms_synced=[ms() for ms in synced_spans],
+               launches=launches, collective_ms=coll["ms"] / n_sync,
+               collective_calls=coll["calls"] / n_sync, peak_gib=peak,
+               masks=torch.stack(masks).cpu().numpy(),
+               misses=[int(x) for x in misses], held=held,
+               num_objs=int(vol.num_objs), slab=tuple(vol.diff.shape))
+    out["render"] = {mode: sh.make_sharded_render(
+        cfg, mesh, SHARD_BUDGETS["max_blocks"], mode)(
+            vol, SHARD_ANGLE, dist, K4, H, W).cpu().numpy()
+        for mode in ("instance", "color")}
+    if mesh.size == 1:
+        out["orbit"] = {mode: splat_render_orbit(
+            vol, SHARD_ANGLE, dist, K4, H, W, cfg, mode=mode).cpu().numpy()
+            for mode in ("instance", "color")}
+    whole = sh.gather_volume_state(vol, mesh)
+    del vol
+    torch.cuda.empty_cache()
+    if whole is not None:
+        out.update(_state_digest(whole))
+    return out
+
+
+def dp_train_rank(mesh, batch, pos, neg, lr, steps):
+    """One rank of the data-parallel training step (also run by the parent
+    on a mesh of one): TrainShapesConfig in float32 with GPU_COUNT =
+    mesh.size and IMAGES_PER_GPU = 8 / mesh.size, the zeroed-RPN init of
+    ``train_phase``, one step of the global ``batch`` checked by the
+    caller, then ``steps`` more timed by CUDA events with the NMS launches
+    counted from 0."""
+    import hashlib
+    import torch
+    from slam_maskrcnn_tpu_torch import kernels
+    from slam_maskrcnn_tpu_torch.models.anchors import get_anchors
+    from slam_maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from slam_maskrcnn_tpu_torch.parallel import shard_batch
+    from slam_maskrcnn_tpu_torch.samples.train_shapes import TrainShapesConfig
+    from slam_maskrcnn_tpu_torch.train.trainer import (BATCH_KEYS,
+                                                       LAYER_REGEX, Trainer)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    kernels.lib("nms")
+    cfg = type("DP", (TrainShapesConfig,), dict(
+        COMPUTE_DTYPE="float32", GPU_COUNT=mesh.size,
+        IMAGES_PER_GPU=8 // mesh.size))()
+    m = MaskRCNN("training", cfg, device=dev)
+    m.init_params(1)
+    with torch.no_grad():
+        for head in (m.module.rpn_model.rpn_class_raw,
+                     m.module.rpn_model.rpn_bbox_pred):
+            head.weight.zero_()
+            head.bias.zero_()
+        m.module.rpn_model.rpn_class_raw.bias[1::2] = torch.tensor(
+            [1.0, 2.0, 0.0])
+    step = Trainer(m, cfg).make_step(lr, LAYER_REGEX["all"], mesh)
+    local = shard_batch(dict({k: batch[k] for k in BATCH_KEYS}, pos=pos,
+                             neg=neg), mesh)
+    p, n = local.pop("pos"), local.pop("neg")
+    local["anchors"] = torch.from_numpy(get_anchors(
+        cfg, cfg.IMAGE_SHAPE)).to(dev)
+    loss, parts = step(local, p, n)
+    params = {k: v.detach().cpu().numpy().copy()
+              for k, v in m.module.named_parameters()}
+    digest = hashlib.sha256(b"".join(params[k].tobytes()
+                                     for k in sorted(params))).hexdigest()
+    torch.cuda.synchronize(dev)
+    kernels.launches.reset()
+    start, stop, ms = _span()
+    start()
+    for _ in range(steps):
+        step(local, p, n)
+    stop()
+    torch.cuda.synchronize(dev)
+    return dict(rank=mesh.rank, loss=float(loss),
+                parts={k: float(v) for k, v in parts.items()},
+                params=params if mesh.rank == 0 else None, digest=digest,
+                step_ms=ms() / steps,
+                launches=dict(kernels.launches.counts))
+
+
+def sharded_phase(dev):
+    """Phase 8: the multi-rank paths of parallel/sharding.py, with
+    SHARD_RANKS ranks on the one card over gloo (NCCL refuses two ranks on
+    one device), spawned by ``launch`` after the parent built the kernels:
+
+    1. the collectives the module uses (all_reduce SUM / MIN / MAX,
+       broadcast) on CUDA f32, i32 and int16-as-bytes tensors over gloo;
+    2. K1 on an x-slab at a nonzero x offset against its plain version
+       and against the whole volume's launch (128^3, slab x 64..127);
+    3. the volume-sharded fuse of SHARD_FRAMES hard_sequence frames into
+       the 512^3 volume (K=32, u16) at one rank (this process) and at
+       SHARD_RANKS ranks: the gathered state (diff, color, weight, hist)
+       bit-equal by sha256, and so the relabeled masks, num_objs and the
+       misses, both to each other and to the port's one-card
+       ``fusion_step`` with the splat probe; K1 launched on every rank's
+       slab, once a frame, and held against its plain version at the
+       path's own shapes on the last rank's slab (x0 > 0, 480 x 640
+       frame): color, weight, hist and the brick classes equal, diff
+       within 2e-6; ms a frame per rank, the collectives' time and count a
+       frame, peak memory per rank;
+    4. the sharded render of that state, "instance" and "color": at most
+       1% of pixels apart from the one-rank splat_render_orbit;
+    5. the data-parallel training step (TrainShapesConfig, f32, TF32 off,
+       the zeroed-RPN fixture of ``train_phase``) at 2 ranks of 4 images
+       against one rank of 8: loss parts within 1e-3 relative, every
+       updated parameter within 2e-6, both ranks' parameters equal; ms a
+       step and the NMS kernel's launches per rank.
+
+    Returns (launches by path, fuse row extras, summary)."""
+    import torch
+    from slam_maskrcnn_tpu_torch import kernels
+    from slam_maskrcnn_tpu_torch.data.dataset import data_generator
+    from slam_maskrcnn_tpu_torch.data.shapes import ShapesDataset
+    from slam_maskrcnn_tpu_torch.data.synthetic import (hard_scene,
+                                                        hard_sequence)
+    from slam_maskrcnn_tpu_torch.fusion import fuse as fz
+    from slam_maskrcnn_tpu_torch.fusion.state import (FusionConfig,
+                                                      make_intrinsic)
+    from slam_maskrcnn_tpu_torch.models.targets import draw_target_noise
+    from slam_maskrcnn_tpu_torch.parallel import launch, single_mesh
+    from slam_maskrcnn_tpu_torch.samples.train_shapes import TrainShapesConfig
+
+    t_phase = time.time()
+    devices = ["cuda:0"] * SHARD_RANKS
+    # ---- 1. the collectives on the card
+    probe = launch(_collective_probe_rank, SHARD_RANKS, devices=devices)
+    log(f"[sharded] gloo on {dev}: {probe[0]}")
+
+    # ---- 2. K1 on a slab at x0 = 64
+    K4 = make_intrinsic(*PIPE_K)
+    frames = hard_sequence(hard_scene(), K4, H, W, n_frames=SHARD_FRAMES + 1)
+    cfg_s = FusionConfig(vol_dim=(128,) * 3)
+    f0 = frames[0]
+    whole = fz.init_from_first_frame(cfg_s, f0["depth"], K4,
+                                     f0["mean_depth"], device=dev)
+    E0i = np.linalg.inv(f0["extrinsic"]).astype(np.float32)
+    fr = frames[3]
+    d, c, m = (torch.from_numpy(fr[k]).to(dev)
+               for k in ("depth", "color", "mask"))
+    p = fz.fuse_params(whole, (fr["extrinsic"] @ E0i).astype(np.float32),
+                       K4, cfg_s)
+    slab = fz.init_state(FusionConfig(vol_dim=(64, 128, 128)),
+                         whole.vol_start, whole.vol_end, device=dev)
+    slab.voxel, slab.mu = whole.voxel, whole.mu
+    slab.diff.fill_(float(whole.mu))
+    plain = slab.clone()
+    fz._fuse_cuda(whole, d, c, m, p)
+    cls_k = fz._fuse_cuda(slab, d, c, m, p, x0=64)
+    fz.fuse_frame_plain(plain, d, c, m, p, x0=64)
+    cls_p = fz.brick_classes_plain(plain, p, *fz.depth_tiles_plain(d),
+                                   H, W, x0=64)
+    torch.cuda.synchronize()
+    check(torch.equal(cls_k, cls_p), "slab x0 64: brick classes != plain")
+    for f in ("diff", "color", "weight", "hist"):
+        check(torch.equal(getattr(slab, f), getattr(whole, f)[64:]),
+              f"slab x0 64 {f}: != the whole volume's launch")
+        if f != "diff":
+            check(torch.equal(getattr(slab, f), getattr(plain, f)),
+                  f"slab x0 64 {f}: kernel != plain")
+    x0_err = float((slab.diff - plain.diff).abs().max())
+    check(x0_err <= 2e-6, f"slab x0 64 diff err {x0_err}")
+    n_upd = int((slab.weight > 0).sum())
+    check(n_upd > 0, "slab x0 64: nothing fused")
+    log(f"[sharded] K1 at x0 64 on a 64x128x128 slab: bit-equal to the "
+        f"whole 128^3 launch's planes 64..127, == plain (max |diff| "
+        f"{x0_err:.3e}), classes == plain, {n_upd} voxels fused")
+    del whole, slab, plain
+
+    # ---- 3-4. the sharded fuse and render, one rank then SHARD_RANKS
+    dist = float(f0["mean_depth"])
+    t0 = time.time()
+    one = sharded_fuse_rank(single_mesh(dev), frames, K4, dist, SHARD_VOL)
+    t_one = time.time() - t0
+    torch.cuda.empty_cache()
+    log(f"[sharded] one rank: {np.mean(one['frame_ms']):.2f} ms a frame, "
+        f"peak {one['peak_gib']:.2f} GiB, misses {one['misses']}, "
+        f"{one['num_objs']} ids, {t_one:.1f} s")
+    card = one_card_fusion(frames, K4, SHARD_VOL, dev)
+    torch.cuda.empty_cache()            # the ranks need the card's memory
+    check(card["sha256"] == one["sha256"],
+          f"sharded fuse on one rank: the state differs from fusion_step's "
+          f"{one['sha256']} vs {card['sha256']}")
+    check(np.array_equal(card["masks"], one["masks"])
+          and card["misses"] == one["misses"]
+          and card["num_objs"] == one["num_objs"],
+          f"sharded fuse on one rank: masks / misses / num_objs differ from "
+          f"fusion_step's ({card['misses']}, {card['num_objs']})")
+    log(f"[sharded] one rank == fusion_step (splat probe): state sha256, "
+        f"masks, misses {card['misses']}, {card['num_objs']} ids")
+    t0 = time.time()
+    outs = launch(sharded_fuse_rank, SHARD_RANKS, devices=devices,
+                  args=(frames, K4, dist, SHARD_VOL))
+    t_many = time.time() - t0
+    lead = outs[0]
+    check(all(x == 0 for x in one["misses"]),
+          f"sharded fuse: one rank overflowed its budgets {one['misses']}")
+    check(lead["sha256"] == one["sha256"],
+          f"sharded fuse: the gathered state differs from one rank's "
+          f"{lead['sha256']} vs {one['sha256']}")
+    for o in outs:
+        check(np.array_equal(o["masks"], one["masks"]),
+              f"sharded fuse: rank {o['rank']}'s masks differ")
+        check(o["misses"] == one["misses"] and o["num_objs"] ==
+              one["num_objs"], f"sharded fuse: rank {o['rank']} misses / "
+              f"num_objs {o['misses']} {o['num_objs']}")
+        check(o["launches"]["fuse"] == SHARD_FRAMES,
+              f"sharded fuse: rank {o['rank']} K1 launches "
+              f"{o['launches']}")
+    held = outs[-1]["held"]
+    check(held.get("x0", 0) > 0 and held["classes_equal"]
+          and all(held["equal"].values()) and held["max_abs_err"] <= 2e-6
+          and held["fused"] > 0,
+          f"sharded fuse: K1 against plain on rank {SHARD_RANKS - 1}'s slab "
+          f"{held}")
+    log(f"[sharded] K1 at x0 {held['x0']} on the {held['slab']} slab, "
+        f"{H}x{W} frame: color / weight / hist / classes == plain, max "
+        f"|diff| {held['max_abs_err']:.3e}, {held['fused']} voxels fused")
+    check(one["num_objs"] >= 3 and one["fused_voxels"] > 1_000_000,
+          f"sharded fuse fixture: {one['num_objs']} ids, "
+          f"{one['fused_voxels']} voxels")
+    render = {}
+    for mode in ("instance", "color"):
+        ref = one["orbit"][mode]
+        for o in outs:
+            check(np.array_equal(o["render"][mode], lead["render"][mode]),
+                  f"sharded render {mode}: ranks disagree")
+        diff = float((lead["render"][mode] != ref).any(-1).mean())
+        lit = float((ref.sum(-1) > 0).mean())
+        check(diff <= 0.01 and lit > 0.05,
+              f"sharded render {mode}: {diff:.4f} of pixels differ, "
+              f"{lit:.3f} lit")
+        render[mode] = dict(differ=diff, lit=lit)
+    fuse_summary = dict(
+        volume=list(SHARD_VOL), frames=SHARD_FRAMES, ranks=SHARD_RANKS,
+        state_sha256_equal=True, equal_to_fusion_step=True,
+        num_objs=one["num_objs"], fused_voxels=one["fused_voxels"],
+        misses=one["misses"], kernel_vs_plain=held,
+        one_rank=dict(ms_per_frame=float(np.mean(one["frame_ms"])),
+                      ms_per_frame_synced=float(np.mean(
+                          one["frame_ms_synced"])),
+                      collective_ms_per_frame=one["collective_ms"],
+                      collective_calls_per_frame=one["collective_calls"],
+                      peak_gib=one["peak_gib"], launches=one["launches"]),
+        per_rank=[dict(rank=o["rank"], slab=list(o["slab"]), x0=o["x0"],
+                       ms_per_frame=float(np.mean(o["frame_ms"])),
+                       ms_per_frame_synced=float(np.mean(
+                           o["frame_ms_synced"])),
+                       collective_ms_per_frame=o["collective_ms"],
+                       collective_calls_per_frame=o["collective_calls"],
+                       peak_gib=o["peak_gib"], launches=o["launches"])
+                  for o in outs],
+        render=render, seconds_one=t_one, seconds_spawned=t_many)
+    log(f"[sharded] fuse {SHARD_VOL}, " + json.dumps(fuse_summary))
+
+    # ---- 5. the data-parallel training step
+    cfg = TrainShapesConfig()
+    ds = ShapesDataset()
+    ds.load_shapes(64, 128, 128, seed=0)
+    ds.prepare()
+    np.random.seed(0)
+    batch = next(data_generator(ds, cfg, seed=0))
+    g = torch.Generator().manual_seed(5)
+    pos, neg = draw_target_noise(8, cfg.POST_NMS_ROIS_TRAINING, g, "cpu")
+    one_dp = dp_train_rank(single_mesh(dev), batch, pos, neg, TRAIN_LR,
+                           DP_STEPS)
+    dp = launch(dp_train_rank, SHARD_RANKS, devices=devices,
+                args=(batch, pos, neg, TRAIN_LR, DP_STEPS))
+    check(all(o["digest"] == dp[0]["digest"] for o in dp),
+          "data-parallel step: the ranks' parameters differ")
+    rel = {k: abs(dp[0]["parts"][k] - v) / max(abs(v), 1e-12)
+           for k, v in one_dp["parts"].items()}
+    check(all(r <= 1e-3 for r in rel.values()),
+          f"data-parallel step: loss parts {dp[0]['parts']} vs one rank "
+          f"{one_dp['parts']}")
+    check(one_dp["parts"]["mrcnn_mask_loss"] > 0,
+          f"data-parallel fixture: positive rois {one_dp['parts']}")
+    p_err = max(float(np.abs(dp[0]["params"][k] - v).max())
+                for k, v in one_dp["params"].items())
+    check(p_err <= 2e-6, f"data-parallel step: parameters differ by {p_err}")
+    for o in dp:
+        check(o["launches"]["nms"] == DP_STEPS,
+              f"data-parallel step: rank {o['rank']} NMS launches "
+              f"{o['launches']}")
+    dp_summary = dict(
+        ranks=SHARD_RANKS, images_per_rank=8 // SHARD_RANKS,
+        loss=dp[0]["loss"], loss_one_rank=one_dp["loss"],
+        parts_rel_err=max(rel.values()), params_max_abs_err=p_err,
+        step_ms_one_rank=one_dp["step_ms"],
+        per_rank=[dict(rank=o["rank"], step_ms=o["step_ms"],
+                       launches=o["launches"]) for o in dp])
+    log("[sharded] data-parallel step, " + json.dumps(dp_summary))
+    paths = {"sharded_fuse": _sum_launches(outs),
+             "dp_train": _sum_launches(dp)}
+    log(f"[sharded] phase {time.time() - t_phase:.1f} s")
+    return (paths, dict(slab_x0_max_abs_err=x0_err,
+                        sharded_slab_max_abs_err=held["max_abs_err"],
+                        sharded_slab=dict(x0=held["x0"],
+                                          shape=held["slab"])),
+            dict(probe=probe[0], fuse=fuse_summary, dp=dp_summary))
+
+
+def _sum_launches(outs) -> dict:
+    return {k: sum(o["launches"][k] for o in outs)
+            for k in outs[0]["launches"]}
+
+
+def _collective_probe_rank(mesh):
+    """all_reduce MIN / MAX / SUM and broadcast of CUDA f32, i32 and int16
+    tensors over the mesh (parallel/sharding.py's own wrappers)."""
+    import torch
+    from slam_maskrcnn_tpu_torch.parallel import sharding as sh
+
+    r, n, dev = mesh.rank, mesh.size, mesh.device
+    f = torch.tensor([1.5 + r, -2.0 * r, 7.0], device=dev)
+    i = torch.tensor([10 - r, r, 3], dtype=torch.int32, device=dev)
+    h = torch.full((5,), 100 * (r + 1), dtype=torch.int16, device=dev)
+    got = dict(min_f32=sh.all_reduce(f, "min", mesh).tolist(),
+               min_i32=sh.all_reduce(i, "min", mesh).tolist(),
+               max_i32=sh.all_reduce(i, "max", mesh).tolist(),
+               sum_f32=sh.all_reduce(f, "sum", mesh).tolist(),
+               bcast_i16=sh.broadcast(h, mesh, src=n - 1).tolist())
+    want = dict(min_f32=[1.5, -2.0 * (n - 1), 7.0],
+                min_i32=[10 - (n - 1), 0, 3], max_i32=[10, n - 1, 3],
+                sum_f32=[sum(1.5 + k for k in range(n)),
+                         sum(-2.0 * k for k in range(n)), 7.0 * n],
+                bcast_i16=[100 * n] * 5)
+    if got != want:
+        raise RuntimeError(f"rank {r}: collectives on {dev}: {got} != "
+                           f"{want}")
+    return dict(got, device=str(dev), backend="gloo")
+
+
 def main() -> int:
     try:
         import torch
@@ -2235,12 +2764,14 @@ def main() -> int:
     s_paths, s_rows, s_summary = samples_phase(dev)
     for k, extra in s_rows.items():
         rows[k]["samples"] = extra
+    sh_paths, sh_fuse, sh_summary = sharded_phase(dev)
+    rows["fuse"].update(sh_fuse)
 
     # launches: each path was counted from 0 on its own (launches_by_path);
     # "launches" is their total. Every kernel of a path must have launched
     # in that path's run.
     by_path = {"step": launches, "paired_chunk": c_launches, **p_paths,
-               "train": t_launches, **s_paths}
+               "train": t_launches, **s_paths, **sh_paths}
     on_path = {"step": ("fuse", "nms", "roi_align"),
                "paired_chunk": ("fuse_pair", "nms", "roi_align"),
                "detect": ("nms", "roi_align"),
@@ -2253,7 +2784,9 @@ def main() -> int:
                "nucleus_detect": ("nms", "roi_align"),
                "mini_coco": ("nms", "roi_align"),
                "balloon": ("nms", "roi_align"),
-               "tracker": ("nms", "roi_align")}
+               "tracker": ("nms", "roi_align"),
+               "sharded_fuse": ("fuse",),
+               "dp_train": ("nms",)}
     for path, names in on_path.items():
         check(all(by_path[path][k] > 0 for k in names),
               f"a kernel of the {path} path was never launched: "
@@ -2275,6 +2808,8 @@ def main() -> int:
     log(json.dumps({"train": dict(t_summary, launches=t_launches,
                                   card=smi)}))
     log(json.dumps({"samples": dict(s_summary, launches=s_paths,
+                                    card=smi)}))
+    log(json.dumps({"sharded": dict(sh_summary, launches=sh_paths,
                                     card=smi)}))
     log(f"[total] {time.time() - t_start:.1f} s")
     log(smi)

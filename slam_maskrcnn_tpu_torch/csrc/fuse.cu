@@ -321,7 +321,7 @@ __device__ __forceinline__ void fuse_brick(float* __restrict__ diff,
                                            int Y, int Z, int K,
                                            const Frames<NF>& frames, int H,
                                            int W, int x0, int y0, int z0,
-                                           const int (&cls)[NF]) {
+                                           int xoff, const int (&cls)[NF]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int n_full = 0, n_free = 0;
 #pragma unroll
@@ -368,7 +368,7 @@ __device__ __forceinline__ void fuse_brick(float* __restrict__ diff,
     }
   const int x_end = min(x0 + BRICK_X, X);
   for (int x = x0; x < x_end; ++x) {
-    const float gx = (float)x;
+    const float gx = (float)(x + xoff);
     const int i = (x * Y + y) * Z + z;
     VoxelRegs r;
     r.have_dw = r.have_color = false;
@@ -398,7 +398,7 @@ __device__ __forceinline__ void fuse_block(float* __restrict__ diff,
                                            uint16_t* __restrict__ hist, int X,
                                            int Y, int Z, int K,
                                            const Frames<NF>& frames, int H,
-                                           int W) {
+                                           int W, int xoff) {
   __shared__ int s_cls[FUSE_GROUP][NF];
   const int nbz = (Z + BRICK_Z - 1) / BRICK_Z;
   const int x0 = blockIdx.z * BRICK_X, y0 = blockIdx.y * BRICK_Y;
@@ -413,7 +413,8 @@ __device__ __forceinline__ void fuse_block(float* __restrict__ diff,
     for (int ff = 0; ff < NF; ++ff)   // a static index into the parameters
       if (ff == f)
         c = classify_brick(
-            frames.f[ff], (float)x0, (float)min(x0 + BRICK_X - 1, X - 1),
+            frames.f[ff], (float)(x0 + xoff),
+            (float)(min(x0 + BRICK_X - 1, X - 1) + xoff),
             (float)y0, (float)min(y0 + BRICK_Y - 1, Y - 1), (float)z0,
             (float)min(z0 + BRICK_Z - 1, Z - 1), H, W, lane);
     if (lane == 0) {
@@ -431,7 +432,7 @@ __device__ __forceinline__ void fuse_block(float* __restrict__ diff,
 #pragma unroll
     for (int f = 0; f < NF; ++f) cls[f] = s_cls[g][f];
     fuse_brick<NF>(diff, color, weight, hist, X, Y, Z, K, frames, H, W, x0, y0,
-                   (bz0 + g) * BRICK_Z, cls);
+                   (bz0 + g) * BRICK_Z, xoff, cls);
   }
 }
 
@@ -439,8 +440,9 @@ __global__ void __launch_bounds__(FUSE_THREADS)
     fuse_kernel(float* __restrict__ diff, uint8_t* __restrict__ color,
                 int32_t* __restrict__ weight, uint16_t* __restrict__ hist,
                 int X, int Y, int Z, int K,
-                const __grid_constant__ Frames<1> frames, int H, int W) {
-  fuse_block<1>(diff, color, weight, hist, X, Y, Z, K, frames, H, W);
+                const __grid_constant__ Frames<1> frames, int H, int W,
+                int xoff) {
+  fuse_block<1>(diff, color, weight, hist, X, Y, Z, K, frames, H, W, xoff);
 }
 
 __global__ void __launch_bounds__(FUSE_THREADS)
@@ -448,7 +450,7 @@ __global__ void __launch_bounds__(FUSE_THREADS)
                      int32_t* __restrict__ weight,
                      uint16_t* __restrict__ hist, int X, int Y, int Z, int K,
                      const __grid_constant__ Frames<2> frames, int H, int W) {
-  fuse_block<2>(diff, color, weight, hist, X, Y, Z, K, frames, H, W);
+  fuse_block<2>(diff, color, weight, hist, X, Y, Z, K, frames, H, W, 0);
 }
 
 static Frame make_frame(const uint16_t* depth, const uint8_t* rgb,
@@ -484,12 +486,14 @@ static Frame make_frame(const uint16_t* depth, const uint8_t* rgb,
 
 // params: float32 [22] per frame (fuse_params + brick_slacks); tiles: i32
 // scratch [frames, 2, th, tw]; classes: i8 out [frames, nbx, nby, nbz].
+// x0 (single frame): the volume is the x-slab [x0, x0 + X) of a larger one
+// whose camera constants `params` are; its voxels take their global x.
 extern "C" int fuse_frame_cuda(float* diff, uint8_t* color, int32_t* weight,
                                uint16_t* hist, int X, int Y, int Z, int K,
                                const uint16_t* depth, const uint8_t* rgb,
                                const uint8_t* mask, int H, int W,
                                const float* params, int32_t* tiles,
-                               int8_t* classes, void* stream) {
+                               int8_t* classes, int x0, void* stream) {
   const int tw = (W + TILE - 1) / TILE, th = (H + TILE - 1) / TILE;
   const int nbz = (Z + BRICK_Z - 1) / BRICK_Z;
   const dim3 grid((nbz + FUSE_GROUP - 1) / FUSE_GROUP,
@@ -502,7 +506,7 @@ extern "C" int fuse_frame_cuda(float* diff, uint8_t* color, int32_t* weight,
   frames.f[0] = make_frame(depth, rgb, mask, params, tiles, classes, th * tw,
                            n_bricks, 0);
   fuse_kernel<<<grid, FUSE_THREADS, 0, s>>>(diff, color, weight, hist, X, Y,
-                                            Z, K, frames, H, W);
+                                            Z, K, frames, H, W, x0);
   return (int)cudaGetLastError();
 }
 

@@ -206,10 +206,11 @@ def depth_tiles_plain(depth: torch.Tensor):
 
 def brick_classes_plain(vol: TSDFState, params: np.ndarray,
                         tile_min: torch.Tensor, tile_max: torch.Tensor,
-                        H: int, W: int) -> torch.Tensor:
+                        H: int, W: int, x0: int = 0) -> torch.Tensor:
     """The fuse kernel's class of every brick for one frame, int8
     [nbx, nby, nbz]: SKIP (0), FULL (1), FREE (2). Plain PyTorch version of
-    ``classify_brick`` in csrc/fuse.cu, same arithmetic and order.
+    ``classify_brick`` in csrc/fuse.cu, same arithmetic and order. ``x0``:
+    ``vol`` is the x-slab at x0 of the volume ``params`` describe.
 
     SKIP: all 8 corner voxels behind the camera; or all in front (z >=
     z_near) and the corners' projected box, widened by px_slack, misses the
@@ -222,16 +223,16 @@ def brick_classes_plain(vol: TSDFState, params: np.ndarray,
     dev = vol.diff.device
     s = [torch.tensor(float(v), dtype=torch.float32, device=dev)
          for v in np.concatenate([np.asarray(params, np.float32)[:19],
-                                  brick_slacks(params, (X, Y, Z))])]
+                                  brick_slacks(params, (x0 + X, Y, Z))])]
     ax, ay, az, b0 = s[0:3], s[3:6], s[6:9], s[9:12]
     fx, fy, cx, cy, mu, dscale, gate, z_slack, z_near, px_slack = s[12:22]
 
-    def ends(n, b, shape):
+    def ends(n, b, shape, off=0):
         lo = torch.arange(0, n, b, device=dev)
         hi = torch.clamp(lo + (b - 1), max=n - 1)
-        return lo.float().view(shape), hi.float().view(shape)
+        return (lo + off).float().view(shape), (hi + off).float().view(shape)
 
-    xs = ends(X, BRICK[0], (-1, 1, 1))
+    xs = ends(X, BRICK[0], (-1, 1, 1), x0)
     ys = ends(Y, BRICK[1], (1, -1, 1))
     zs = ends(Z, BRICK[2], (1, 1, -1))
     inf = torch.tensor(float("inf"), device=dev)
@@ -289,10 +290,11 @@ def brick_classes_plain(vol: TSDFState, params: np.ndarray,
 
 def fuse_frame_plain(vol: TSDFState, depth: torch.Tensor,
                      color: torch.Tensor, mask: torch.Tensor,
-                     params: np.ndarray, slab: int = 32) -> None:
+                     params: np.ndarray, slab: int = 32, x0: int = 0) -> None:
     """Plain PyTorch version of the fuse kernel, in place, over x-slabs of
     ``slab`` planes (bounds the temporaries at 512^3). Same arithmetic and
-    evaluation order as csrc/fuse.cu."""
+    evaluation order as csrc/fuse.cu. ``x0``: ``vol`` is the x-slab at x0
+    of the volume ``params`` describe (its voxels take their global x)."""
     X, Y, Z = vol.diff.shape
     H, W = depth.shape
     K = vol.hist.shape[-1]
@@ -307,9 +309,9 @@ def fuse_frame_plain(vol: TSDFState, depth: torch.Tensor,
     gy = torch.arange(Y, dtype=torch.float32, device=dev)[None, :, None]
     gz = torch.arange(Z, dtype=torch.float32, device=dev)[None, None, :]
     tiny = torch.tensor(1e-9, dtype=torch.float32, device=dev)
-    for x0 in range(0, X, slab):
-        x1 = min(X, x0 + slab)
-        gx = torch.arange(x0, x1, dtype=torch.float32,
+    for xa in range(0, X, slab):
+        xb = min(X, xa + slab)
+        gx = torch.arange(x0 + xa, x0 + xb, dtype=torch.float32,
                           device=dev)[:, None, None]
         px, py, pz = (((b0[r] + ax[r] * gx) + ay[r] * gy) + az[r] * gz
                       for r in range(3))
@@ -325,8 +327,8 @@ def fuse_frame_plain(vol: TSDFState, depth: torch.Tensor,
         sel, pix, diff_m = sel[valid], pix[valid], diff_m[valid]
         dn = torch.minimum(diff_m, mu) / mu
 
-        diff_s = vol.diff[x0:x1].view(-1)
-        w_s = vol.weight[x0:x1].view(-1)
+        diff_s = vol.diff[xa:xb].view(-1)
+        w_s = vol.weight[xa:xb].view(-1)
         w = w_s[sel]
         wt = w.float()
         diff_s[sel] = (diff_s[sel] * wt + dn) / (wt + 1.0)
@@ -334,10 +336,10 @@ def fuse_frame_plain(vol: TSDFState, depth: torch.Tensor,
 
         gate = dn < gate_thr
         sel, pix, w = sel[gate], pix[gate], w[gate][:, None]
-        col_s = vol.color[x0:x1].view(-1, 3)
+        col_s = vol.color[xa:xb].view(-1, 3)
         col_s[sel] = ((col_s[sel].to(torch.int32) * w + c_flat[pix])
                       // (w + 1)).to(torch.uint8)
-        hist_s = vol.hist[x0:x1].view(-1, K)
+        hist_s = vol.hist[xa:xb].view(-1, K)
         m = m_flat[pix]
         hist_s[sel, m] = hist_s[sel, m] + 1
 
@@ -365,10 +367,11 @@ def _check_volume(vol: TSDFState) -> None:
 
 
 def _kernel_scratch(vol: TSDFState, n_frames: int, H: int, W: int,
-                    params) -> tuple:
+                    params, x0: int = 0) -> tuple:
     """What a launch of the fuse kernel needs beside the state: per frame
-    the 22 kernel parameters (``fuse_params`` + ``brick_slacks``), the i32
-    scratch of the depth-tile pass and the i8 brick classes it writes."""
+    the 22 kernel parameters (``fuse_params`` + ``brick_slacks``, these
+    over the global x of an x-slab at ``x0``), the i32 scratch of the
+    depth-tile pass and the i8 brick classes it writes."""
     X, Y, Z = vol.diff.shape
     if X * Y * Z * 3 >= 2 ** 31:
         raise ValueError(f"fuse kernel: a volume of {X}x{Y}x{Z} voxels "
@@ -380,27 +383,30 @@ def _kernel_scratch(vol: TSDFState, n_frames: int, H: int, W: int,
                                               zip((X, Y, Z), BRICK)),
                           dtype=torch.int8, device=vol.device)
     full = [np.ascontiguousarray(np.concatenate(
-        [np.asarray(p, np.float32), brick_slacks(p, (X, Y, Z))]), np.float32)
+        [np.asarray(p, np.float32), brick_slacks(p, (x0 + X, Y, Z))]),
+        np.float32)
         for p in params]
     return full, tiles, classes
 
 
-def _fuse_cuda(vol: TSDFState, depth, color, mask, params) -> torch.Tensor:
-    """Launch the fuse kernel on one frame. Returns the brick classes the
-    kernel used, int8 [nbx, nby, nbz]."""
+def _fuse_cuda(vol: TSDFState, depth, color, mask, params,
+               x0: int = 0) -> torch.Tensor:
+    """Launch the fuse kernel on one frame (``vol`` the x-slab at ``x0`` of
+    the volume ``params`` describe). Returns the brick classes the kernel
+    used, int8 [nbx, nby, nbz]."""
     X, Y, Z = vol.diff.shape
     K = vol.hist.shape[-1]
     H, W = depth.shape
     _check_volume(vol)
     depth, color, mask = _frame_for_kernel(vol, depth, color, mask)
-    (p,), tiles, classes = _kernel_scratch(vol, 1, H, W, [params])
+    (p,), tiles, classes = _kernel_scratch(vol, 1, H, W, [params], x0)
     fn = kernels.lib("fuse").fuse_frame_cuda
     kernels.launches.add("fuse")
     err = fn(kernels.ptr(vol.diff), kernels.ptr(vol.color),
              kernels.ptr(vol.weight), kernels.ptr(vol.hist), X, Y, Z, K,
              kernels.ptr(depth), kernels.ptr(color), kernels.ptr(mask), H, W,
              p.ctypes.data_as(ctypes.c_void_p), kernels.ptr(tiles),
-             kernels.ptr(classes), kernels.stream_ptr(vol.device))
+             kernels.ptr(classes), int(x0), kernels.stream_ptr(vol.device))
     kernels.check(err, "fuse kernel")
     return classes[0]
 
@@ -442,18 +448,21 @@ def _fuse_pair_cuda(vol: TSDFState, depth1, color1, mask1, params1,
 
 def fuse_frame(vol: TSDFState, depth: torch.Tensor, color: torch.Tensor,
                mask: torch.Tensor, extrinsic2init, intrinsic,
-               cfg: FusionConfig) -> TSDFState:
+               cfg: FusionConfig, x0: int = 0) -> TSDFState:
     """Fuse one frame into ``vol`` in place and count it (n_obs += 1).
 
     depth u16 [H, W] raw (0 = invalid); color u8 [H, W, 3] (BGR); mask u8
     [H, W] global instance ids; extrinsic2init f32 [4, 4] (this frame's
     world->camera composed with the first frame's camera->world);
-    intrinsic f32 [4, 4]. Returns ``vol``."""
+    intrinsic f32 [4, 4]. ``x0``: ``vol`` is the x-slab [x0, x0 + X) of a
+    volume whose geometry (``vol_start``, ``voxel``) it carries: each voxel
+    is computed from its global x, by the same expression as in the whole
+    volume (parallel/sharding.py). Returns ``vol``."""
     params = fuse_params(vol, extrinsic2init, intrinsic, cfg)
     if on_cuda(vol.diff):
-        _fuse_cuda(vol, depth, color, mask, params)
+        _fuse_cuda(vol, depth, color, mask, params, x0)
     else:
-        fuse_frame_plain(vol, depth, color, mask, params)
+        fuse_frame_plain(vol, depth, color, mask, params, x0=x0)
     vol.n_obs += 1
     return vol
 

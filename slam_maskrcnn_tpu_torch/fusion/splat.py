@@ -130,11 +130,14 @@ def _positions(gx, gy, gz, vol_start, voxel):
 
 
 def _compact_shell(vol: TSDFState, max_blocks: int, max_rows: int,
-                   shell_band: float) -> dict:
+                   shell_band: float, x0: int = 0) -> dict:
     """State-side half of the splat: compact the surface shell to
     [max_rows, 128] rows in the blocked enumeration order and compute their
     world positions. Camera-free, so one compaction can serve many views
-    (OrbitRenderer) or a probe and a render (the north-star step)."""
+    (OrbitRenderer) or a probe and a render (the north-star step). ``x0``:
+    ``vol`` is the x-slab at x0 of a volume whose geometry it carries; the
+    positions are those of the voxels' global x, the ids local to the
+    slab (parallel/sharding.py)."""
     diff = vol.diff
     X, Y, Z = diff.shape
     nbx, nby, nbz = _block_dims((X, Y, Z))
@@ -171,7 +174,7 @@ def _compact_shell(vol: TSDFState, max_blocks: int, max_rows: int,
     gx = (blk // (nbz * nby))[:, None] * BX + vlin // (BY * BZ)
     gy = ((blk // nbz) % nby)[:, None] * BY + (vlin // BZ) % BY
     gz = (blk % nbz)[:, None] * BZ + vlin % BZ
-    px, py, pz = _positions(gx, gy, gz, vol.vol_start, vol.voxel)
+    px, py, pz = _positions(gx + x0, gy, gz, vol.vol_start, vol.voxel)
     code_r = (gx * Y + gy) * Z + gz
     # block-budget overflow counted in voxels
     over_blocks = (n_act - max_blocks).clamp_min(0) * (BX * BY * BZ)

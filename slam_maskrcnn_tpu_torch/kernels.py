@@ -37,7 +37,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # as c_void_p: a bare Python int would be cut to 32 bits)
 _SIGNATURES = {
     "fuse": {"fuse_frame_cuda": [_P, _P, _P, _P, _I, _I, _I, _I,
-                                 _P, _P, _P, _I, _I, _P, _P, _P, _P],
+                                 _P, _P, _P, _I, _I, _P, _P, _P, _I, _P],
              "fuse_frames2_cuda": [_P, _P, _P, _P, _I, _I, _I, _I,
                                    _P, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _P, _P, _P]},

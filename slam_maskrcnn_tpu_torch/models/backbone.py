@@ -64,10 +64,16 @@ class BatchNorm(nn.Module):
     statistics over every axis but the channel's, with Flax's fast
     variance E[x^2] - E[x]^2 (floored at 0), and the running averages move
     by momentum 0.99 (ra = 0.99 ra + 0.01 stat), as Flax's
-    ``nn.BatchNorm(use_running_average=False)`` does."""
+    ``nn.BatchNorm(use_running_average=False)`` does.
+
+    ``reduce_stats``, when set on an instance (parallel/sharding.py
+    ``batch_stats_over``): a function of the per-channel [sum, sum of
+    squares, count] rows that returns them over the whole data-parallel
+    batch; the statistics are then those sums over that count."""
 
     eps = 1e-3
     momentum = 0.99
+    reduce_stats = None
 
     def __init__(self, n: int):
         super().__init__()
@@ -81,8 +87,15 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = (0,) + tuple(range(2, x.dim()))
-            mean = xf.mean(axes)
-            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            if self.reduce_stats is None:
+                mean = xf.mean(axes)
+                var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            else:
+                n = torch.full_like(self.mean, xf.numel() // xf.shape[1])
+                s = self.reduce_stats(torch.stack(
+                    [xf.sum(axes), (xf * xf).sum(axes), n]))
+                mean = s[0] / s[2]
+                var = (s[1] / s[2] - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -101,8 +101,8 @@ def main() -> int:
         tail = (P(tiles), P(classes), kernels.stream_ptr(vol.device))
         if len(fs) == 1:
             d, c, m, _ = fs[0]
-            launch = lambda: lib.fuse_frame_cuda(*state, P(d), P(c), P(m), H,
-                                                 W, pp[0], *tail)
+            launch = lambda: lib.fuse_frame_cuda(
+                *state, P(d), P(c), P(m), H, W, pp[0], *tail[:2], 0, tail[2])
         else:
             (d1, c1, m1, _), (d2, c2, m2, _) = fs
             launch = lambda: lib.fuse_frames2_cuda(

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from slam_maskrcnn_tpu_torch.device import resolve_device
+
 # the reference's candidate classes (mask_image.py:33)
 CANDIDATE_CLASSES = ("bottle", "cup", "vase")
 
@@ -73,13 +75,14 @@ def pick_mask(result, class_names, candidates=CANDIDATE_CLASSES,
     return best
 
 
-def match_template(image, templ, device="cpu") -> torch.Tensor:
+def match_template(image, templ, device="cuda") -> torch.Tensor:
     """= cv2.matchTemplate(image, templ, cv2.TM_CCOEFF_NORMED) for u8
     [H, W, C] and [h, w, C] arrays: [H - h + 1, W - w + 1] float64 on
-    ``device``. R = sum(T' I) / sqrt(sum(T'^2) sum(I'^2)) over the window
+    ``device`` (the card unless the caller asks for the CPU). R = sum(T' I) / sqrt(sum(T'^2) sum(I'^2)) over the window
     and the channels, T' and I' less their per-channel means; where the
     denominator t is not above |numerator|, OpenCV's rule: +-1 below
     1.125 t, else 0."""
+    device = resolve_device(device)
     img = torch.as_tensor(np.ascontiguousarray(image), device=device)
     tpl = torch.as_tensor(np.ascontiguousarray(templ), device=device)
     if img.dim() == 2:

@@ -30,6 +30,7 @@ import tempfile
 import time
 
 import numpy as np
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -110,6 +111,131 @@ def inference_twin(model, inf_cfg):
     return inf
 
 
+def attach_diagnostics(model) -> list:
+    """Record each training step of ``model`` into the returned list, one
+    dict a step: the positive rois the detection-target layer keeps, the
+    mean of their mask targets, the mask and box losses, and the norm of
+    the mask head's gradient (before clipping). A wrapper on the module's
+    ``train_forward`` and gradient hooks on the mask head's parameters;
+    the step itself is unchanged."""
+    from slam_maskrcnn_tpu_torch.models.losses import (mrcnn_bbox_loss,
+                                                       mrcnn_mask_loss)
+
+    module = model.module
+    records: list = []
+    forward = module.train_forward
+
+    def recorded(*args, **kwargs):
+        outputs, targets = forward(*args, **kwargs)
+        with torch.no_grad():
+            cls = targets["target_class_ids"]
+            pos = cls > 0
+            n = int(pos.sum())
+            records.append(dict(
+                positive_rois=n,
+                mask_target_mean=(float(targets["target_mask"][pos].mean())
+                                  if n else None),
+                mask_loss=float(mrcnn_mask_loss(
+                    targets["target_mask"], cls, outputs["mrcnn_masks"])),
+                bbox_loss=float(mrcnn_bbox_loss(
+                    targets["target_bbox"], cls, outputs["mrcnn_bbox"])),
+                mask_grad_sq=0.0))
+        return outputs, targets
+
+    def hook(grad):
+        records[-1]["mask_grad_sq"] += float(grad.float().pow(2).sum())
+
+    module.train_forward = recorded
+    for p in module.fpn_mask.parameters():
+        p.register_hook(hook)
+    return records
+
+
+def summarize_diagnostics(records: list) -> dict:
+    """The per-step lists of ``attach_diagnostics``' records."""
+    return dict(
+        positive_rois=[r["positive_rois"] for r in records],
+        mask_target_mean=[None if r["mask_target_mean"] is None
+                          else round(r["mask_target_mean"], 4)
+                          for r in records],
+        mask_loss=[round(r["mask_loss"], 4) for r in records],
+        bbox_loss=[round(r["bbox_loss"], 4) for r in records],
+        mask_grad_norm=[round(r["mask_grad_sq"] ** 0.5, 6) for r in records])
+
+
+def mask_target_dump(model, cfg, dataset) -> dict:
+    """The first image's detection targets beside their source. The model's
+    proposals for the image (frozen BatchNorm, no gradient), the first
+    three replaced by its gt boxes shifted by a tenth of their size so
+    that some roi is positive, go through ``detection_targets`` with the
+    image's mini-masks, as the training batches carry them; the first
+    positive roi's 28x28 target is set beside the crop of the image's full
+    molded gt mask by the same roi (the reference's non-mini-mask target,
+    model.py:637-655). The two agree up to the mini-mask's resampling
+    where the targets are aligned."""
+    from slam_maskrcnn_tpu_torch.data.dataset import load_image_gt
+    from slam_maskrcnn_tpu_torch.models.anchors import get_anchors
+    from slam_maskrcnn_tpu_torch.models.proposal import generate_proposals
+    from slam_maskrcnn_tpu_torch.models.targets import (detection_targets,
+                                                        draw_target_noise)
+    from slam_maskrcnn_tpu_torch.ops.boxes import compute_iou_matrix
+    from slam_maskrcnn_tpu_torch.ops.roi_align import crop_and_resize
+
+    dev = model.device
+    module = model.module
+    image_id = dataset.image_ids[0]
+    image, cls, boxes, mini, _, _ = load_image_gt(dataset, cfg, image_id,
+                                                  use_mini_mask=True)
+    *_, full, _, _ = load_image_gt(dataset, cfg, image_id,
+                                   use_mini_mask=False)
+    H, W = image.shape[:2]
+    scale = np.array([H - 1, W - 1, H - 1, W - 1], np.float32)
+    shift = np.array([0, 0, 1, 1], np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    images = t((image.astype(np.float32) - cfg.MEAN_PIXEL)[None]
+               .astype(np.float32))
+    gt_boxes = t(((boxes.astype(np.float32) - shift) / scale)[None])
+    gt_masks = t(np.transpose(mini, (2, 0, 1)).astype(np.float32)[None])
+    module.eval()
+    with torch.no_grad():
+        _, probs, deltas = module.rpn_outputs(module.features(images))
+        proposals, _ = generate_proposals(
+            probs, deltas, t(get_anchors(cfg, cfg.IMAGE_SHAPE)),
+            module.proposal_count, module.rpn_nms_threshold,
+            module.pre_nms_limit, module.rpn_bbox_std)
+    g0 = gt_boxes[0, 0]
+    hw = (g0[2:] - g0[:2]).repeat(2)
+    moves = torch.tensor([[0.1, 0.1, 0.1, 0.1], [-0.1, 0.05, -0.1, 0.05],
+                          [0.05, -0.1, 0.05, -0.1]], device=dev)
+    proposals[0, :3] = (g0 + moves * hw).clamp(0.0, 1.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pos, neg = draw_target_noise(1, proposals.shape[1], gen, dev)
+    rois, tcls, _, tmask, _ = detection_targets(
+        proposals, t(cls[None].astype(np.int32)), gt_boxes, gt_masks, pos,
+        neg, train_rois=cfg.TRAIN_ROIS_PER_IMAGE,
+        positive_ratio=cfg.ROI_POSITIVE_RATIO,
+        mask_size=module.mask_pool_size * 2, bbox_std=module.bbox_std)
+    positive = (tcls[0] > 0).nonzero()[:, 0]
+    out = dict(image_id=int(image_id), positive_rois=int(len(positive)))
+    if not len(positive):
+        return out
+    i = int(positive[0])
+    roi = rois[0, i]
+    target = tmask[0, i].cpu().numpy()
+    # the roi's gt: the box of highest IoU, as the target layer picks it
+    g = int(compute_iou_matrix(roi[None], gt_boxes[0]).argmax())
+    crop = crop_and_resize(t(full[:, :, g:g + 1].astype(np.float32)),
+                           roi[None], target.shape)[0, :, :, 0]
+    crop = torch.round(crop).cpu().numpy()
+    rows = lambda m: ["".join("#" if v > 0.5 else "." for v in r) for r in m]
+    out.update(roi=[round(float(v), 5) for v in roi.cpu()], gt_index=g,
+               target_mean=float(target.mean()),
+               full_crop_mean=float(crop.mean()),
+               agreement=float((target == crop).mean()),
+               target=rows(target), full_crop=rows(crop))
+    return out
+
+
 def run_one(name: str, model, cfg, dataset, steps: int, epochs: int = 1,
             lr: float | None = None, val_ds=None, min_map=None,
             inf_cfg=None, decay_after: float | None = None):
@@ -124,6 +250,7 @@ def run_one(name: str, model, cfg, dataset, steps: int, epochs: int = 1,
     from slam_maskrcnn_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(model, cfg)
+    records = attach_diagnostics(model)
     kw = dict(layers="all", steps_per_epoch=steps, checkpoint=False)
     t0 = time.time()
     lr0 = lr if lr is not None else cfg.LEARNING_RATE
@@ -144,8 +271,10 @@ def run_one(name: str, model, cfg, dataset, steps: int, epochs: int = 1,
            "loss_last_epoch": None if last is None else round(last, 3),
            "decrease_ratio": (None if not history or not last
                               else round(first / last, 2)),
-           "seconds": round(secs, 1)}
+           "seconds": round(secs, 1),
+           "diagnostics": summarize_diagnostics(records)}
     if val_ds is not None:
+        out["target_dump"] = mask_target_dump(model, cfg, val_ds)
         inf = inference_twin(model, inf_cfg)
         icfg = inf.config
         t0 = time.time()

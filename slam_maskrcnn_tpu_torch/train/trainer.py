@@ -23,7 +23,21 @@ The step is the JAX package's (trainer.py:85-137) written out:
 With TRAIN_BN the module runs in train mode (batch-statistics BatchNorm,
 running averages updated by the step); without, BatchNorm is frozen. A
 float32 model runs the step with TF32 off, so "float32" is f32 on the
-card too. One card: GPU_COUNT > 1 raises.
+card too.
+
+GPU_COUNT > 1 trains data-parallel, inside an initialized process group
+of GPU_COUNT ranks (parallel/sharding.py ``launch``; a RuntimeError naming
+both sizes otherwise): one step on the global batch of IMAGES_PER_GPU *
+GPU_COUNT images, as the JAX package's jit over a sharded batch
+(trainer.py:179-205). Every rank draws the same global batch and the same
+target-sampling draws (a seed broadcast from rank 0) and keeps its slice,
+so a per-image draw follows the global image index; each loss divides its
+rank's numerator by the global count, rank 0 adds the L2 term, the
+gradients are summed over the ranks and then clipped as one, and with
+TRAIN_BN BatchNorm takes the global batch's statistics
+(``batch_stats_over``). Averaging per-rank means instead would be wrong
+wherever the ranks hold different counts of positive anchors or rois.
+Only rank 0 prints and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ from slam_maskrcnn_tpu_torch.models.losses import total_loss
 from slam_maskrcnn_tpu_torch.models.mask_rcnn import _exact_f32
 from slam_maskrcnn_tpu_torch.models.targets import draw_target_noise
 from slam_maskrcnn_tpu_torch.models.weights import flax_path
+from slam_maskrcnn_tpu_torch.parallel import sharding
 from slam_maskrcnn_tpu_torch.train import checkpoint as ckpt
 
 # layer-selection regexes, reference model.py:2269-2280
@@ -96,11 +111,14 @@ class Trainer:
         self.run_directory = None
         self.epoch = 0
 
-    def make_step(self, lr: float, layers_regex: str):
+    def make_step(self, lr: float, layers_regex: str, mesh=None):
         """The step for a learning rate and layer regex: ``step(batch,
         pos_noise, neg_noise)`` updates the model in place and returns
         (loss, {loss name: value}) as 0-dim tensors. ``batch``: tensors on
-        the model's device (``batch_to_device``) plus "anchors"."""
+        the model's device (``batch_to_device``) plus "anchors". With a
+        ``mesh`` (parallel/sharding.py) of several ranks, ``batch`` and the
+        draws are this rank's slice of the global batch, the step is the
+        global batch's and the returned losses are the global ones."""
         cfg = self.config
         model = self.model
         module = model.module
@@ -115,6 +133,11 @@ class Trainer:
         f32 = module.dtype == torch.float32
         max_norm = float(cfg.GRADIENT_CLIP_NORM)
         momentum = float(cfg.LEARNING_MOMENTUM)
+        dp = mesh is not None and mesh.size > 1
+        # each loss's count over the whole mesh (models/losses.py)
+        reduce = ((lambda c: sharding.all_reduce(c.detach(), "sum", mesh))
+                  if dp else None)
+        sharding.batch_stats_over(module, mesh)
 
         def step(batch, pos_noise, neg_noise):
             module.train(train_bn)
@@ -129,13 +152,20 @@ class Trainer:
                 targets["rpn_match"] = batch["rpn_match"]
                 targets["rpn_bbox"] = batch["rpn_bbox"]
                 targets["active_class_ids"] = batch["active_class_ids"]
-                loss, parts = total_loss(outputs, targets, cfg.LOSS_WEIGHTS)
-                loss = loss + l2_regularization(model, cfg.WEIGHT_DECAY)
+                loss, parts = total_loss(outputs, targets, cfg.LOSS_WEIGHTS,
+                                         reduce)
+                if not dp or mesh.rank == 0:
+                    loss = loss + l2_regularization(model, cfg.WEIGHT_DECAY)
                 loss.backward()
             module.eval()
             with torch.no_grad():
                 grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                          for p in live_p]
+                if dp:
+                    grads = sharding.reduce_gradients(grads, mesh)
+                    loss = sharding.all_reduce(loss.detach(), "sum", mesh)
+                    parts = {k: sharding.all_reduce(v.detach(), "sum", mesh)
+                             for k, v in parts.items()}
                 # optax clip_by_global_norm (the frozen zeros add nothing)
                 norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
                 if not bool(norm < max_norm):
@@ -147,6 +177,23 @@ class Trainer:
             return loss.detach(), {k: v.detach() for k, v in parts.items()}
 
         return step
+
+    def _mesh(self):
+        """None for one card; for GPU_COUNT > 1 this rank's mesh of the
+        initialized process group, which must hold GPU_COUNT ranks."""
+        n = int(self.config.GPU_COUNT)
+        if n <= 1:
+            return None
+        import torch.distributed as dist
+        have = (dist.get_world_size() if dist.is_available()
+                and dist.is_initialized() else None)
+        if have != n:
+            raise RuntimeError(
+                f"GPU_COUNT = {n} trains data-parallel inside an "
+                f"initialized process group of {n} ranks "
+                f"(parallel/sharding.py launch); this process is "
+                + ("in none" if have is None else f"in one of {have}"))
+        return sharding.make_mesh(n, self.model.device)
 
     def load_weights(self, path: str = "last", model_dir: str = "./logs"):
         """Restore a checkpoint and resume its epoch counter (model.py:
@@ -169,10 +216,7 @@ class Trainer:
         from slam_maskrcnn_tpu_torch.data.dataset import data_generator
 
         cfg = self.config
-        if cfg.GPU_COUNT > 1:
-            raise NotImplementedError(
-                "GPU_COUNT > 1: data-parallel training over several cards "
-                "(parallel/sharding.py) is not ported yet")
+        mesh = self._mesh()
         lr = learning_rate or cfg.LEARNING_RATE
         layers_regex = LAYER_REGEX.get(layers, layers)
         steps = steps_per_epoch or cfg.STEPS_PER_EPOCH
@@ -180,25 +224,45 @@ class Trainer:
         dev = model.device
         if not model.initialized:
             model.init_params()
+        # with several ranks only rank 0 logs and writes checkpoints: the
+        # ranks hold the same parameters after every step
+        lead = mesh is None or mesh.rank == 0
+        checkpoint = checkpoint and lead
+        verbose = verbose and lead
         if self.run_directory is None and checkpoint:
             self.run_directory = ckpt.run_dir(model.model_dir,
                                               cfg.NAME or "model")
 
-        step = self.make_step(lr, layers_regex)
+        seed = None
+        if mesh is not None:
+            # one global batch stream on every rank: the generator's draws
+            # and build_rpn_targets' global numpy draws from one seed
+            sharding.shard_params(model.module, mesh)
+            seed = sharding.broadcast_seed(mesh)
+            np.random.seed(seed % 2 ** 32)
+        step = self.make_step(lr, layers_regex, mesh)
         anchors = torch.from_numpy(get_anchors(cfg, cfg.IMAGE_SHAPE)).to(dev)
         gen = data_generator(train_dataset, cfg, shuffle=True,
-                             augment=augment, augmentation=augmentation)
+                             augment=augment, augmentation=augmentation,
+                             seed=seed)
         noise = torch.Generator(device=dev).manual_seed(self.epoch)
         history = []
         for epoch in range(self.epoch, epochs):
             t0 = time.time()
             losses = []
             for _ in range(steps):
-                batch = batch_to_device(next(gen), dev)
-                batch["anchors"] = anchors
+                batch = next(gen)
+                B = batch["images"].shape[0]
                 pos, neg = draw_target_noise(
-                    batch["images"].shape[0], model.module.proposal_count,
-                    noise, dev)
+                    B, model.module.proposal_count, noise, dev)
+                if mesh is None:
+                    batch = batch_to_device(batch, dev)
+                else:
+                    batch = sharding.shard_batch(
+                        dict({k: batch[k] for k in BATCH_KEYS}, pos=pos,
+                             neg=neg), mesh)
+                    pos, neg = batch.pop("pos"), batch.pop("neg")
+                batch["anchors"] = anchors
                 loss, parts = step(batch, pos, neg)
                 losses.append(float(loss))
             mean_loss = float(np.mean(losses))

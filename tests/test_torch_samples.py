@@ -302,7 +302,7 @@ def test_template_match_matches_jax(seed):
         np.uint8)
     names = ["BG", "bottle", "cup", "vase"]
     stub = Stub(3, classes=(1, 3))
-    res = tmi.match_template(nxt, crop)
+    res = tmi.match_template(nxt, crop, device="cpu")
     want = cv2.matchTemplate(nxt, crop, cv2.TM_CCOEFF_NORMED)
     np.testing.assert_allclose(res.numpy(), want, rtol=0, atol=1e-4)
     assert tmi.max_location(res) == cv2.minMaxLoc(want)[3]

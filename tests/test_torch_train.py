@@ -13,7 +13,8 @@ proposals, 16 training rois, float32):
   to it (checked equal to the Trainer's step, to an ulp, where both
   run);
 * the freeze masks of the five regexes, parameter by parameter;
-* the epoch resume from find_last, the GPU_COUNT > 1 refusal;
+* the epoch resume from find_last, the GPU_COUNT > 1 refusal outside a
+  process group of that size;
 * the h5 writer: a file written by the port read back by h5py, by the
   JAX package's strict load_h5_weights and by the port's.
 
@@ -377,7 +378,8 @@ def test_training_mode_and_refusals(tmp_path):
     ds = ShapesDataset()
     ds.load_shapes(2, 128, 128)
     ds.prepare()
-    with pytest.raises(NotImplementedError, match="GPU_COUNT"):
+    # data-parallel training needs a process group of GPU_COUNT ranks
+    with pytest.raises(RuntimeError, match="GPU_COUNT = 2"):
         Trainer(MaskRCNN("training", multi, device="cpu")).train(ds)
     with pytest.raises(ValueError, match="mode"):
         MaskRCNN("testing", tcfg, device="cpu")
