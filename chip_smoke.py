@@ -53,7 +53,12 @@
    x-slab at a nonzero offset against its plain version, the
    volume-sharded fuse at 512^3 bit-equal to one rank (and the fuse
    kernel launched on every rank's slab), its render within 1% of one
-   rank's, the data-parallel training step equal to one rank's.
+   rank's, the dense ("xla") step sharded at 256^3 (u32) sha256-equal to
+   one rank's, the data-parallel training step equal to one rank's.
+8. sfm/ on the card (``sfm_phase``): PatchMatch held against its CPU run
+   and timed at 480 x 640; the two-view SfM (SIFT, matching, RANSAC,
+   rectification with the warps, SGBM) on a 480 x 640 synthetic pair
+   against its CPU run, with stage times.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (a
 row's "launches" is the total of "launches_by_path", the counts of the two
@@ -2401,6 +2406,156 @@ def sharded_fuse_rank(mesh, frames, K4, dist, vol_dim):
     return out
 
 
+DENSE_SHARD_VOL = (256, 256, 256)   # the dense path's volume, u32 histogram
+DENSE_SHARD_FRAMES = 5         # fused frames of hard_sequence (+ 1 init)
+
+
+def _slab_shas(vol, n: int) -> list:
+    """sha256 of each field of each of ``n`` equal x-slabs of ``vol``."""
+    X = vol.diff.shape[0] // n
+    return [{f: _sha(getattr(vol, f)[r * X:(r + 1) * X])
+             for f in ("diff", "color", "weight", "hist")} for r in range(n)]
+
+
+def dense_sharded_rank(mesh, frames, K4, vol_dim):
+    """One rank of the dense ("xla") volume-sharded step: this rank's slab
+    of the ``vol_dim`` volume with a u32 histogram, initialized from
+    frames[0], the other frames fused by ``make_sharded_fusion_step(...,
+    backend="xla")``. Frames 0 and 1 warm up (the probe first runs on
+    frame 1); from frame 2 on every collective is timed on the host
+    between two synchronizations (``collective_ms`` and
+    ``collective_calls`` a frame) and each frame by CUDA events
+    (``frame_ms``, synchronizations included). Returns those, the peak
+    memory, the relabeled masks, num_objs and the slab's sha256 per
+    field."""
+    import torch
+    from slam_maskrcnn_tpu_torch.fusion.state import (FusionConfig,
+                                                      init_from_first_frame)
+    from slam_maskrcnn_tpu_torch.parallel import sharding as sh
+
+    dev = mesh.device
+    cfg = FusionConfig(vol_dim=tuple(vol_dim), hist_dtype=np.uint32)
+    full = init_from_first_frame(cfg, frames[0]["depth"], K4,
+                                 frames[0]["mean_depth"], device=dev)
+    vol = sh.shard_volume_state(full, mesh)
+    del full
+    torch.cuda.empty_cache()
+    staged = _stage(frames, dev)
+    step = sh.make_sharded_fusion_step(cfg, mesh, backend="xla")
+    coll = {"ms": 0.0, "calls": 0}
+    orig = sh.all_reduce, sh.broadcast
+
+    def synced(fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize(dev)
+            coll["ms"] += (time.perf_counter() - t0) * 1e3
+            coll["calls"] += 1
+            return out
+        return wrapped
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    masks, spans = [], []
+    try:
+        for i, (d, c, m, e) in enumerate(staged):
+            if i == 2:
+                sh.all_reduce, sh.broadcast = synced(orig[0]), synced(orig[1])
+            start, stop, ms = _span()
+            start()
+            vol, mask_g, _ = step(vol, d, c, m, e, K4)
+            stop()
+            if i >= 2:
+                spans.append(ms)
+            masks.append(mask_g)
+        torch.cuda.synchronize(dev)
+    finally:
+        sh.all_reduce, sh.broadcast = orig
+    n = len(spans)
+    return dict(rank=mesh.rank, x0=mesh.rank * vol.diff.shape[0],
+                slab=list(vol.diff.shape), frame_ms=[ms() for ms in spans],
+                collective_ms=coll["ms"] / n, collective_calls=coll["calls"]
+                / n, peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                masks=torch.stack(masks).cpu().numpy(),
+                num_objs=int(vol.num_objs), sha256=_slab_shas(vol, 1)[0])
+
+
+def dense_sharded(dev, devices):
+    """The dense ("xla") volume-sharded step at DENSE_SHARD_VOL over
+    DENSE_SHARD_FRAMES hard_sequence frames at 480 x 640: one rank (the
+    port's ``fusion_step_dense`` on the whole volume in this process,
+    timed by CUDA events from frame 2 on) and SHARD_RANKS ranks on
+    ``devices``. Each rank's slab must be sha256-equal to the one-rank
+    state's planes, and the masks and num_objs equal; no rank ever holds
+    more than its slab and one plane of the next. Returns the summary."""
+    import torch
+    from slam_maskrcnn_tpu_torch.data.synthetic import (hard_scene,
+                                                        hard_sequence)
+    from slam_maskrcnn_tpu_torch.fusion.pipeline import fusion_step_dense
+    from slam_maskrcnn_tpu_torch.fusion.state import (FusionConfig,
+                                                      init_from_first_frame,
+                                                      make_intrinsic)
+    from slam_maskrcnn_tpu_torch.parallel import launch
+
+    t0 = time.time()
+    K4 = make_intrinsic(*PIPE_K)
+    Kinv = np.linalg.inv(K4).astype(np.float32)
+    frames = hard_sequence(hard_scene(), K4, H, W,
+                           n_frames=DENSE_SHARD_FRAMES + 1)
+    cfg = FusionConfig(vol_dim=DENSE_SHARD_VOL, hist_dtype=np.uint32)
+    st = init_from_first_frame(cfg, frames[0]["depth"], K4,
+                               frames[0]["mean_depth"], device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    masks, spans = [], []
+    for i, (d, c, m, e) in enumerate(_stage(frames, dev)):
+        start, stop, ms = _span()
+        start()
+        st, mask_g = fusion_step_dense(st, d, c, m, e, K4, Kinv, cfg)
+        stop()
+        if i >= 2:
+            spans.append(ms)
+        masks.append(mask_g)
+    torch.cuda.synchronize()
+    one = dict(frame_ms=float(np.mean([ms() for ms in spans])),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               masks=torch.stack(masks).cpu().numpy(),
+               num_objs=int(st.num_objs),
+               fused_voxels=int((st.weight > 0).sum()),
+               hist_votes=int(st.hist.sum(dtype=torch.int64)),
+               shas=_slab_shas(st, SHARD_RANKS))
+    del st
+    torch.cuda.empty_cache()            # the ranks need the card's memory
+    outs = launch(dense_sharded_rank, SHARD_RANKS, devices=devices,
+                  args=(frames, K4, DENSE_SHARD_VOL))
+    for o in outs:
+        check(o["sha256"] == one["shas"][o["rank"]],
+              f"dense sharded step: rank {o['rank']}'s slab differs from "
+              f"one rank's planes {o['sha256']} vs {one['shas'][o['rank']]}")
+        check(np.array_equal(o["masks"], one["masks"])
+              and o["num_objs"] == one["num_objs"],
+              f"dense sharded step: rank {o['rank']}'s masks / num_objs "
+              f"({o['num_objs']} vs {one['num_objs']})")
+    check(one["num_objs"] >= 3 and one["fused_voxels"] > 100_000,
+          f"dense sharded fixture: {one['num_objs']} ids, "
+          f"{one['fused_voxels']} voxels")
+    summary = dict(
+        volume=list(DENSE_SHARD_VOL), hist="u32",
+        frames=DENSE_SHARD_FRAMES, ranks=SHARD_RANKS,
+        slab_sha256_equal=True, num_objs=one["num_objs"],
+        fused_voxels=one["fused_voxels"], hist_votes=one["hist_votes"],
+        one_rank=dict(ms_per_frame=one["frame_ms"],
+                      peak_gib=one["peak_gib"]),
+        per_rank=[dict(rank=o["rank"], slab=o["slab"], x0=o["x0"],
+                       ms_per_frame=float(np.mean(o["frame_ms"])),
+                       collective_ms_per_frame=o["collective_ms"],
+                       collective_calls_per_frame=o["collective_calls"],
+                       peak_gib=o["peak_gib"]) for o in outs],
+        seconds=time.time() - t0)
+    log("[sharded] dense (xla) step, " + json.dumps(summary))
+    return summary
+
+
 def dp_train_rank(mesh, batch, pos, neg, lr, steps):
     """One rank of the data-parallel training step (also run by the parent
     on a mesh of one): TrainShapesConfig in float32 with GPU_COUNT =
@@ -2481,7 +2636,10 @@ def sharded_phase(dev):
        within 2e-6; ms a frame per rank, the collectives' time and count a
        frame, peak memory per rank;
     4. the sharded render of that state, "instance" and "color": at most
-       1% of pixels apart from the one-rank splat_render_orbit;
+       1% of pixels apart from the one-rank splat_render_orbit; then the
+       dense ("xla") step sharded (``dense_sharded``: 256^3 with a u32
+       histogram, the ray-march probe across the slabs), each rank's
+       slab sha256-equal to one rank's ``fusion_step_dense``;
     5. the data-parallel training step (TrainShapesConfig, f32, TF32 off,
        the zeroed-RPN fixture of ``train_phase``) at 2 ranks of 4 images
        against one rank of 8: loss parts within 1e-3 relative, every
@@ -2634,6 +2792,9 @@ def sharded_phase(dev):
         render=render, seconds_one=t_one, seconds_spawned=t_many)
     log(f"[sharded] fuse {SHARD_VOL}, " + json.dumps(fuse_summary))
 
+    # ---- 4b. the dense ("xla") step sharded, u32 histogram
+    dense_summary = dense_sharded(dev, devices)
+
     # ---- 5. the data-parallel training step
     cfg = TrainShapesConfig()
     ds = ShapesDataset()
@@ -2678,7 +2839,180 @@ def sharded_phase(dev):
                         sharded_slab_max_abs_err=held["max_abs_err"],
                         sharded_slab=dict(x0=held["x0"],
                                           shape=held["slab"])),
-            dict(probe=probe[0], fuse=fuse_summary, dp=dp_summary))
+            dict(probe=probe[0], fuse=fuse_summary, dense=dense_summary,
+                 dp=dp_summary))
+
+
+SFM_SEED = 11
+PM_SMALL = (120, 160)          # PatchMatch held card against CPU
+PM_BIG = (480, 640)            # PatchMatch timed at a TUM frame's size
+PM_SHIFT = 6                   # the pairs' disparity, px
+
+
+def _texture(rng, h: int, w: int) -> np.ndarray:
+    """A smooth random f32 texture in [0, 255]: uniform noise blurred by
+    two passes of the binomial [1, 4, 6, 4, 1] / 16 per axis (wrapping)."""
+    t = rng.random((h, w)) * 255.0
+    k = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
+    for _ in range(2):
+        for ax in (0, 1):
+            t = sum(k[i] * np.roll(t, i - 2, axis=ax) for i in range(5))
+    return t.astype(np.float32)
+
+
+def sfm_phase(dev):
+    """Phase 9: sfm/ on the card.
+
+    1. PatchMatch (patch 5, max_disp 16, 4 iterations, seed 0) on a
+       120 x 160 pair shifted by PM_SHIFT px, on the card and on the CPU:
+       ``disp`` within 1e-3 px on at least 99% of pixels, finite and
+       positive (the share within 0.5 px of the shift is recorded: the
+       reference's 4 iterations do not converge at this size); then a
+       480 x 640 pair (patch 5, max_disp 48, 5 iterations) timed alone on
+       the card.
+    2. ``slam_two_view`` on the card against its CPU run
+       (``two_view_check``), with its stage times.
+
+    Returns the summary."""
+    import torch
+    from slam_maskrcnn_tpu_torch.sfm import PatchMatch
+
+    t_phase = time.time()
+    rng = np.random.default_rng(SFM_SEED)
+    out = {}
+    right = _texture(rng, *PM_SMALL)
+    left = np.roll(right, PM_SHIFT, axis=1)
+    t0 = time.time()
+    card = PatchMatch(left, right, patch=5, max_disp=16, seed=0,
+                      device=dev).run(4).cpu().numpy()
+    t_card = time.time() - t0
+    t0 = time.time()
+    cpu = PatchMatch(left, right, patch=5, max_disp=16, seed=0,
+                     device="cpu").run(4).numpy()
+    t_cpu = time.time() - t0
+    share = float((np.abs(card - cpu) <= 1e-3).mean())
+    check(share >= 0.99, f"PatchMatch card vs CPU: {share:.4f} of pixels "
+          f"within 1e-3 px")
+    check(bool(np.isfinite(card).all()) and card.min() > 0,
+          "PatchMatch: disparities not finite and positive")
+    out["patchmatch_small"] = dict(
+        shape=list(PM_SMALL), share_within_1e3=share,
+        equal=float((card == cpu).mean()),
+        median_disp=float(np.median(card[10:-10, 20:-10])),
+        share_within_half_px_of_shift=float(
+            (np.abs(card[10:-10, 20:-10] - PM_SHIFT) < 0.5).mean()),
+        seconds_card=t_card, seconds_cpu=t_cpu)
+    right = _texture(rng, *PM_BIG)
+    left = np.roll(right, PM_SHIFT, axis=1)
+    pm = PatchMatch(left, right, patch=5, max_disp=48, seed=0, device=dev)
+    torch.cuda.synchronize()
+    start, stop, ms = _span()
+    start()
+    disp = pm.run(5)
+    stop()
+    torch.cuda.synchronize()
+    check(tuple(disp.shape) == PM_BIG and bool(torch.isfinite(disp).all())
+          and float(disp.min()) > 0,
+          "PatchMatch 480x640: disparities not finite and positive")
+    out["patchmatch_big"] = dict(
+        shape=list(PM_BIG), patch=5, max_disp=48, iters=5, ms=ms(),
+        median_disp=float(disp[10:-10, 60:-10].median()))
+    out["two_view"] = two_view_check(dev)
+    out["seconds"] = time.time() - t_phase
+    log("[sfm] " + json.dumps(out))
+    return out
+
+
+def _pair_keypoints(ka, kb) -> float:
+    """The share of ``ka``'s keypoints with a keypoint of ``kb`` of the
+    same octave and ``pt`` within 0.01 px."""
+    from scipy.spatial import cKDTree
+    if not len(ka["pt"]):
+        return 0.0
+    tree = cKDTree(kb["pt"])
+    hits = tree.query_ball_point(ka["pt"], r=0.01, p=np.inf)
+    octa, octb = ka["octave"] & 255, kb["octave"] & 255
+    return float(np.mean([any(octb[j] == octa[i] for j in h)
+                          for i, h in enumerate(hits)]))
+
+
+def _deg(Ra, Rb) -> float:
+    c = (np.trace(Ra.T @ Rb) - 1) / 2
+    return float(np.degrees(np.arccos(np.clip(c, -1, 1))))
+
+
+def _tdeg(a, b) -> float:
+    a, b = np.ravel(a) / np.linalg.norm(a), np.ravel(b) / np.linalg.norm(b)
+    return float(np.degrees(np.arccos(np.clip(abs(a @ b), -1, 1))))
+
+
+def two_view_check(dev):
+    """``slam_two_view`` on the 480 x 640 three-plane scene (sfm/scene.py,
+    seed SFM_SEED), on the card (a warm-up run, then one with a stage
+    time after each mark: host clock around a synchronization) and on the
+    CPU: at least 99% of the CPU's keypoints paired on the card (same
+    octave, pt within 0.01 px), R and t within 0.1 degree of the CPU's,
+    the ground truth within 1 and 2 degrees, the card's warps bit-equal
+    to the CPU's on the same homographies and SGBM bit-equal to the CPU's
+    on the card's rectified pair."""
+    import torch
+    from slam_maskrcnn_tpu_torch.ops.sgbm import sgbm_disparity
+    from slam_maskrcnn_tpu_torch.ops.warp import warp_perspective
+    from slam_maskrcnn_tpu_torch.sfm import slam_two_view
+    from slam_maskrcnn_tpu_torch.sfm.scene import two_view_scene
+
+    img1, img2, K, R, t = two_view_scene(SFM_SEED)
+    slam_two_view(img1, img2, K, device=dev, seed=SFM_SEED)
+    stages, last = {}, [0.0]
+
+    def mark(stage):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages[stage] = (now - last[0]) * 1e3
+        last[0] = now
+
+    torch.cuda.synchronize()
+    last[0] = t0 = time.perf_counter()
+    card = slam_two_view(img1, img2, K, device=dev, seed=SFM_SEED,
+                         mark=mark)
+    total = (time.perf_counter() - t0) * 1e3
+    t0 = time.time()
+    cpu = slam_two_view(img1, img2, K, device="cpu", seed=SFM_SEED)
+    t_cpu = time.time() - t0
+    paired = [_pair_keypoints(c, g) for c, g in zip(cpu["keypoints"],
+                                                    card["keypoints"])]
+    check(min(paired) >= 0.99, f"two-view SIFT: card pairs {paired} of the "
+          f"CPU's keypoints")
+    dR, dt = _deg(card["R"], cpu["R"]), _tdeg(card["t"], cpu["t"])
+    check(dR <= 0.1 and dt <= 0.1, f"two-view pose: card vs CPU R {dR:.4f}, "
+          f"t {dt:.4f} degrees")
+    gR, gt = _deg(card["R"], R), _tdeg(card["t"], t)
+    check(gR <= 1.0 and gt <= 2.0, f"two-view pose vs ground truth: R "
+          f"{gR:.4f}, t {gt:.4f} degrees")
+    check("disparity" in card, "two-view: the rectification failed")
+    r1, r2 = card["rectified"]
+    H1, H2 = card["homographies"]
+    size = (img1.shape[1], img1.shape[0])
+    for r, img, Hm in ((r1, img1, H1), (r2, img2, H2)):
+        check(torch.equal(r.cpu(), warp_perspective(torch.from_numpy(img),
+                                                    Hm, size)),
+              "two-view: warpPerspective card != CPU")
+    d_cpu = sgbm_disparity(r1.cpu(), r2.cpu())
+    d_card = (card["disparity"] * 16).to(torch.int16).cpu()
+    check(torch.equal(d_card, d_cpu), "two-view: SGBM card != CPU on the "
+          "same rectified pair")
+    valid = float((d_cpu >= 0).float().mean())
+    check(valid > 0.3, f"two-view: {valid:.3f} of the disparity valid")
+    res = dict(shape=list(img1.shape), matches=len(card["matches"][0]),
+               votes=card["positive_depth_votes"], keypoints_paired=paired,
+               keypoints=[len(k["pt"]) for k in card["keypoints"]],
+               card_vs_cpu_deg=dict(R=dR, t=dt),
+               ground_truth_deg=dict(R=gR, t=gt),
+               disparity_valid=valid, sgbm_bit_equal=True,
+               warps_bit_equal=True, stage_ms=stages, total_ms=total,
+               seconds_cpu=t_cpu)
+    log("[sfm] two-view " + json.dumps(res))
+    return res
 
 
 def _sum_launches(outs) -> dict:
@@ -2766,6 +3100,7 @@ def main() -> int:
         rows[k]["samples"] = extra
     sh_paths, sh_fuse, sh_summary = sharded_phase(dev)
     rows["fuse"].update(sh_fuse)
+    sfm_summary = sfm_phase(dev)
 
     # launches: each path was counted from 0 on its own (launches_by_path);
     # "launches" is their total. Every kernel of a path must have launched
@@ -2811,6 +3146,7 @@ def main() -> int:
                                     card=smi)}))
     log(json.dumps({"sharded": dict(sh_summary, launches=sh_paths,
                                     card=smi)}))
+    log(json.dumps({"sfm": dict(sfm_summary, card=smi)}))
     log(f"[total] {time.time() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [rows[k] for k in (

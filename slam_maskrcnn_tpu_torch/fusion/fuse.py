@@ -491,7 +491,7 @@ def fuse_frames2(vol: TSDFState, depth1, color1, mask1, extrinsic2init1,
 
 def fuse_frame_dense(state: TSDFState, depth: torch.Tensor,
                      color: torch.Tensor, mask: torch.Tensor, extrinsic2init,
-                     intrinsic, cfg: FusionConfig) -> TSDFState:
+                     intrinsic, cfg: FusionConfig, x0: int = 0) -> TSDFState:
     """Fuse one frame into the dense ``state`` in place and count it
     (n_obs += 1): the JAX package's jnp ``fuse_frame`` (fusion/fuse.py:
     64-147) as torch code over the whole volume, in its arithmetic and
@@ -506,7 +506,9 @@ def fuse_frame_dense(state: TSDFState, depth: torch.Tensor,
     integer mean and the mask id (clipped to K-1) is counted: a one-hot
     add to the histogram at its dtype, or in majority-vote mode the
     Boyer-Moore step of the id and its counter; then weight += 1.
-    Arguments as ``fuse_frame``. Returns ``state``."""
+    Arguments as ``fuse_frame``; ``x0``: ``state`` is the x-slab [x0, x0 +
+    X) of a volume with its geometry, every voxel computed from its global
+    x. Returns ``state``."""
     X, Y, Z = state.diff.shape
     H, W = depth.shape
     dev = state.device
@@ -531,10 +533,10 @@ def fuse_frame_dense(state: TSDFState, depth: torch.Tensor,
     m_flat = mask.reshape(-1).to(dev).to(torch.int64)
     bins = torch.arange(Kb, device=dev)
     slab = max(1, (1 << 21) // (Y * Z))
-    for x0 in range(0, X, slab):
-        x1 = min(X, x0 + slab)
-        xs = (vs[0] + torch.arange(x0, x1, dtype=torch.float32, device=dev)
-              * vx[0])[:, None, None]
+    for xa in range(0, X, slab):
+        xb = min(X, xa + slab)
+        xs = (vs[0] + torch.arange(x0 + xa, x0 + xb, dtype=torch.float32,
+                                   device=dev) * vx[0])[:, None, None]
         px, py, pz = (((e[r, 0] * xs + e[r, 1] * ys) + e[r, 2] * zs)
                       + e[r, 3] for r in range(3))
         sx, sy, sz = (((k[r, 0] * px + k[r, 1] * py) + k[r, 2] * pz)
@@ -551,14 +553,14 @@ def fuse_frame_dense(state: TSDFState, depth: torch.Tensor,
         valid = in_bounds & (d_raw > 0) & (diff_m > -mu)
         diff_n = torch.minimum(diff_m, mu) / mu
 
-        diff = state.diff[x0:x1]
-        weight = state.weight[x0:x1]
+        diff = state.diff[xa:xb]
+        weight = state.weight[xa:xb]
         wt = weight.to(torch.float32)
         diff.copy_(torch.where(valid, (diff * wt + diff_n) / (wt + 1.0),
                                diff))
         gate = valid & (diff_n < gate_thr)
 
-        col = state.color[x0:x1]
+        col = state.color[xa:xb]
         w_i = weight[..., None]
         blended = ((col.to(torch.int32) * w_i + c_flat[flat_idx])
                    // (w_i + 1)).to(torch.uint8)
@@ -566,8 +568,8 @@ def fuse_frame_dense(state: TSDFState, depth: torch.Tensor,
 
         m_pix = m_flat[flat_idx].clamp(0, Kb - 1)
         if cfg.majority_vote:
-            mv_id = state.mv_id[x0:x1]
-            cnt = state.mv_cnt[x0:x1]
+            mv_id = state.mv_id[xa:xb]
+            cnt = state.mv_cnt[xa:xb]
             m32 = m_pix.to(torch.int32)
             same = mv_id == m32
             new_cnt = torch.where(same, cnt + 1,
@@ -577,7 +579,7 @@ def fuse_frame_dense(state: TSDFState, depth: torch.Tensor,
             cnt.copy_(torch.where(gate, new_cnt, cnt))
             mv_id.copy_(torch.where(gate, new_id, mv_id))
         else:
-            hist = state.hist[x0:x1]
+            hist = state.hist[xa:xb]
             onehot = (m_pix[..., None] == bins) & gate[..., None]
             hist += onehot.to(hist.dtype)
         weight += valid.to(torch.int32)

@@ -27,7 +27,9 @@ from slam_maskrcnn_tpu_torch.fusion.splat import INSTANCE_PALETTE
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig, TSDFState
 
 __all__ = ["INSTANCE_PALETTE", "trilinear", "ray_march", "camera_rays",
-           "back_project_probe", "orbit_camera", "render", "render_orbit"]
+           "back_project_probe", "orbit_camera", "render", "render_orbit",
+           "grid_floor", "march_bounds", "march_start", "march_update",
+           "probe_rays"]
 
 
 def _t(a, dev) -> torch.Tensor:
@@ -53,31 +55,57 @@ def _unit(d: torch.Tensor) -> torch.Tensor:
     return d / n[..., None]
 
 
+def grid_floor(pos: torch.Tensor, vol_start, voxel, dims):
+    """(floor index [..., 3] int64, fraction [..., 3] f32) of world
+    positions in a grid of ``dims`` voxels: ``trilinear``'s corner base.
+    Positions far outside the grid are clamped before the integer cast
+    (their corners clamp to the border anyway)."""
+    dev = pos.device
+    idx = (pos - _t(vol_start, dev)) / _t(voxel, dev)
+    flf = torch.floor(idx)
+    fr = idx - flf
+    fl = flf.clamp(-2.0, float(max(dims)) + 1.0).to(torch.int64)
+    return fl, fr
+
+
 def trilinear(vol: torch.Tensor, vol_start, voxel, pos: torch.Tensor,
-              unsigned: bool = False) -> torch.Tensor:
+              unsigned: bool = False, x0: int = 0, dims=None,
+              halo: torch.Tensor | None = None) -> torch.Tensor:
     """Trilinear sample of a volume at world positions.
 
     ``vol``: [X, Y, Z] or [X, Y, Z, C]; ``pos``: [..., 3]. Mirrors
     ``interp_tsdf_diff/color/cnt`` (utils.cu:99-170) with the corner
     indices clamped to the grid. ``unsigned``: the values are unsigned
     counts stored in the signed tensor of their width (the volume's
-    histogram: u16 in int16, u32 in int32) and are read as such."""
-    dims = vol.shape[:3]
+    histogram: u16 in int16, u32 in int32) and are read as such.
+
+    An x-slab: ``vol`` holds the planes [x0, x0 + X) of a volume of
+    ``dims`` voxels, ``halo`` [Y, Z(, C)] its plane x0 + X (None on the
+    last slab). A sample whose clamped x corner base lies in the slab
+    reads only those planes (its corners are that base and the next x),
+    and equals the whole volume's sample bit for bit; any other sample is
+    garbage for the caller to mask (``slab_owner``)."""
+    shape = tuple(vol.shape[:3])
+    dims = shape if dims is None else tuple(dims)
     chan = tuple(vol.shape[3:])
-    dev = vol.device
-    idx = (pos - _t(vol_start, dev)) / _t(voxel, dev)
-    flf = torch.floor(idx)
-    fr = idx - flf
-    # positions far outside the grid clamp anyway: bound before the cast
-    fl = flf.clamp(-2.0, float(max(dims)) + 1.0).to(torch.int64)
+    fl, fr = grid_floor(pos, vol_start, voxel, dims)
     flat = vol.reshape((-1,) + chan)
-    sy, sx = dims[2], dims[1] * dims[2]
+    hflat = None if halo is None else halo.reshape((-1,) + chan)
+    sy, sx = shape[2], shape[1] * shape[2]
+    slab = dims != shape
 
     def corner(i, j, k):
         ci = (fl[..., 0] + i).clamp(0, dims[0] - 1)
         cj = (fl[..., 1] + j).clamp(0, dims[1] - 1)
         ck = (fl[..., 2] + k).clamp(0, dims[2] - 1)
-        v = flat[ci * sx + cj * sy + ck]
+        if slab:
+            ci = ci - x0
+            v = flat[ci.clamp(0, shape[0] - 1) * sx + cj * sy + ck]
+            if hflat is not None:
+                v = torch.where((ci == shape[0]).view(
+                    ci.shape + (1,) * len(chan)), hflat[cj * sy + ck], v)
+        else:
+            v = flat[ci * sx + cj * sy + ck]
         if unsigned:
             v = v.to(torch.int64) & ((1 << 8 * flat.element_size()) - 1)
         return v.to(torch.float32)
@@ -97,6 +125,53 @@ def trilinear(vol: torch.Tensor, vol_start, voxel, pos: torch.Tensor,
     return mix(low, high, fz)
 
 
+def march_bounds(vol: TSDFState, o: torch.Tensor, d: torch.Tensor,
+                 tmin_clip: float = 0.01, tmax_clip: float = 100.0):
+    """(tnear, tfar) of rays against the volume's AABB (the slab test of
+    tsdf.cu:90-101)."""
+    dev = d.device
+    vs, ve = _t(vol.vol_start, dev), _t(vol.vol_end, dev)
+    inv_d = 1.0 / d
+    tbot = inv_d * (vs - o)
+    ttop = inv_d * (ve - o)
+    tnear = torch.minimum(ttop, tbot).max(-1).values.clamp_min(tmin_clip)
+    tfar = torch.maximum(ttop, tbot).min(-1).values.clamp_max(tmax_clip) \
+        - 1e-6
+    return tnear, tfar
+
+
+def march_update(ray: dict, f_tt: torch.Tensor, active: torch.Tensor,
+                 tfar: torch.Tensor, voxel0: float) -> None:
+    """One march iteration, in place on the ray state ``ray`` (t, f_t,
+    step, alive, hit, t_hit), for the rays in ``active`` given the SDF
+    sample ``f_tt`` at their t: a sign change is a hit, refined linearly
+    with the pre-update step; otherwise the step drops to voxel/4 near the
+    surface and t advances (tsdf.cu:103-124)."""
+    hit_now = active & (f_tt < 0.0)
+    t_ref = ray["t"] + ray["step"] * f_tt / (ray["f_t"] - f_tt)
+    ray["t_hit"] = torch.where(hit_now, t_ref, ray["t_hit"])
+    cont = active & ~hit_now
+    step = torch.where(cont & (f_tt < voxel0 / 2.0),
+                       torch.full_like(ray["step"], voxel0 / 4.0),
+                       ray["step"])
+    ray["step"] = step
+    ray["f_t"] = torch.where(cont, f_tt, ray["f_t"])
+    ray["t"] = torch.where(cont, ray["t"] + step, ray["t"])
+    ray["alive"] = torch.where(active, cont & (ray["t"] < tfar),
+                               ray["alive"])
+    ray["hit"] = ray["hit"] | hit_now
+
+
+def march_start(t0: torch.Tensor, f0: torch.Tensor, tnear: torch.Tensor,
+                tfar: torch.Tensor, voxel0: float) -> dict:
+    """The ray state before the first iteration: only rays that intersect
+    the AABB and start outside the surface (f > 0) march."""
+    return dict(t=t0, f_t=f0, step=torch.full_like(t0, voxel0),
+                alive=(tnear <= tfar) & (f0 > 0) & (t0 < tfar),
+                hit=torch.zeros_like(t0, dtype=torch.bool),
+                t_hit=torch.zeros_like(t0))
+
+
 def ray_march(vol: TSDFState, origins: torch.Tensor, dirs: torch.Tensor,
               cfg: FusionConfig, tmin_clip: float = 0.01,
               tmax_clip: float = 100.0):
@@ -109,42 +184,20 @@ def ray_march(vol: TSDFState, origins: torch.Tensor, dirs: torch.Tensor,
     dev = vol.device
     d = dirs.to(torch.float32)
     o = origins.to(torch.float32).expand_as(d)
-    vs, ve = _t(vol.vol_start, dev), _t(vol.vol_end, dev)
-    inv_d = 1.0 / d
-    tbot = inv_d * (vs - o)
-    ttop = inv_d * (ve - o)
-    tnear = torch.minimum(ttop, tbot).max(-1).values.clamp_min(tmin_clip)
-    tfar = torch.maximum(ttop, tbot).min(-1).values.clamp_max(tmax_clip) \
-        - 1e-6
+    tnear, tfar = march_bounds(vol, o, d, tmin_clip, tmax_clip)
     voxel0 = float(vol.voxel[0])
-    vx = _t(vol.voxel, dev)
+    vs, vx = _t(vol.vol_start, dev), _t(vol.voxel, dev)
 
     def sample(t):   # the geometry uploaded once, not once a march step
         return trilinear(vol.diff, vs, vx, o + t[..., None] * d)
 
-    t = tnear + 1e-6
-    f_t = sample(t)
-    # only rays that intersect the AABB and start outside the surface march
-    alive = (tnear <= tfar) & (f_t > 0) & (t < tfar)
-    step = torch.full_like(t, voxel0)
-    hit = torch.zeros_like(alive)
-    t_hit = torch.zeros_like(t)
+    t0 = tnear + 1e-6
+    ray = march_start(t0, sample(t0), tnear, tfar, voxel0)
     for _ in range(cfg.max_march_steps):
-        if not bool(alive.any()):
+        if not bool(ray["alive"].any()):
             break
-        f_tt = sample(t)
-        hit_now = alive & (f_tt < 0.0)
-        # zero-crossing refinement with the pre-update step size
-        t_ref = t + step * f_tt / (f_t - f_tt)
-        t_hit = torch.where(hit_now, t_ref, t_hit)
-        cont = alive & ~hit_now
-        step = torch.where(cont & (f_tt < voxel0 / 2.0),
-                           torch.full_like(step, voxel0 / 4.0), step)
-        f_t = torch.where(cont, f_tt, f_t)
-        t = torch.where(cont, t + step, t)
-        alive = cont & (t < tfar)
-        hit = hit | hit_now
-    return hit, t_hit
+        march_update(ray, sample(ray["t"]), ray["alive"], tfar, voxel0)
+    return ray["hit"], ray["t_hit"]
 
 
 def camera_rays(intrinsic_inv, H: int, W: int,
@@ -160,6 +213,18 @@ def camera_rays(intrinsic_inv, H: int, W: int,
             + Ki[None, None, :3, 2] * ones)
 
 
+def probe_rays(vol: TSDFState, extrinsic2init, intrinsic_inv, H: int,
+               W: int):
+    """The probe's rays from the current camera: origin [3] and unit
+    directions [H, W, 3] in the volume's frame, on the volume's device."""
+    dev = vol.device
+    E = _t(extrinsic2init, dev)
+    R_t = E[:3, :3].T
+    o = -_rotate(E[:3, 3], R_t)
+    targets = camera_rays(intrinsic_inv, H, W, dev)
+    return o, _unit(_rotate(targets, R_t))
+
+
 def back_project_probe(vol: TSDFState, extrinsic2init, intrinsic_inv,
                        H: int, W: int, cfg: FusionConfig):
     """What the fused model claims each pixel's instance is
@@ -167,12 +232,7 @@ def back_project_probe(vol: TSDFState, extrinsic2init, intrinsic_inv,
     at the surface hit, the trilinearly sampled raw instance histogram
     ``probs`` [H, W, K]; ``box_mask`` flags bins whose interpolated count
     exceeds cfg.box_mask_thresh."""
-    dev = vol.device
-    E = _t(extrinsic2init, dev)
-    R_t = E[:3, :3].T
-    o = -_rotate(E[:3, 3], R_t)
-    targets = camera_rays(intrinsic_inv, H, W, dev)
-    d = _unit(_rotate(targets, R_t))
+    o, d = probe_rays(vol, extrinsic2init, intrinsic_inv, H, W)
     hit, t_hit = ray_march(vol, o, d, cfg)
     pos = o + t_hit[..., None] * d
     cnts = trilinear(vol.hist, vol.vol_start, vol.voxel, pos, unsigned=True)

@@ -29,13 +29,23 @@ calls in numpy, pixel for pixel against OpenCV 5 (tests/test_torch_augment.py):
     1024)`` per column, each rounded half to even, plus 512, shifted
     down by 10.
 
+* ``warp_perspective`` (sfm/two_view.py's rectification warp): u8 gray,
+  linear, border 0, in torch on the image's device. The 3x3 matrix is
+  inverted in double on the host; in float32, each of the three rows
+  gives ``fma(x, m0, m1 * y + m2)`` in a 16-pixel vector and ``fma(x, m0,
+  m1 * y) + m2`` in the row's tail, the source position is the first two
+  divided by the third (a true division, not a reciprocal), and the
+  blend and rounding are warpAffine's.
+
 Every product-and-sum that OpenCV fuses into one rounding is computed
-exactly here (``fma32``), so the result does not depend on the host.
+exactly here (``fma32``, ``fma32_t``), so the result does not depend on
+the host or the device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 INTER_NEAREST, INTER_LINEAR = 0, 1
 # pixels a vector of OpenCV 5's float warp covers (AVX-512 float32 lanes)
@@ -161,3 +171,72 @@ def warp_affine(src: np.ndarray, M, dsize, flags: int = INTER_LINEAR
     if src.dtype == np.uint8:
         return np.clip(np.rint(v), 0, 255).astype(np.uint8)
     return v
+
+
+# ------------------------------------------------------ the torch warps
+
+def fma32_t(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``fma32`` in torch on the operands' device: a * b + c of float32
+    tensors rounded once to float32 (the product exact in float64, the sum
+    rounded to odd there, then to float32)."""
+    p = a.double() * torch.as_tensor(b, device=a.device).double()
+    c = torch.as_tensor(c, device=a.device).double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    fix = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    away = torch.where(err > 0, torch.full_like(s, float("inf")),
+                       torch.full_like(s, float("-inf")))
+    return torch.where(fix, torch.nextafter(s, away), s).float()
+
+
+def _perspective_positions(m: np.ndarray, h: int, w: int, dev):
+    """OpenCV 5's float32 source positions (sx, sy) [h, w] of the inverse
+    matrix ``m`` (9 float64 coefficients)."""
+    m = torch.from_numpy(m.astype(np.float32)).to(dev)
+    x = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(
+        h, w)
+    y = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(
+        h, w)
+    vec = (w // VECTOR) * VECTOR
+    rows = []
+    for k in (0, 3, 6):
+        row = m[k + 1] * y
+        pos = fma32_t(x, m[k], row + m[k + 2])
+        pos[:, vec:] = fma32_t(x[:, vec:], m[k], row[:, vec:]) + m[k + 2]
+        rows.append(pos)
+    X, Y, Wt = rows
+    return X / Wt, Y / Wt
+
+
+def warp_perspective(src: torch.Tensor, M, dsize) -> torch.Tensor:
+    """= cv2.warpPerspective(src, M, dsize) (INTER_LINEAR, border
+    constant 0) on a u8 gray image [H, W] on its device; dsize = (w, h).
+    Returns u8 [h, w] there. The 3x3 inverse is computed on the host in
+    float64."""
+    if src.dtype != torch.uint8 or src.dim() != 2:
+        raise TypeError("warp_perspective takes a u8 gray image [H, W]")
+    w, h = int(dsize[0]), int(dsize[1])
+    H, W = src.shape
+    dev = src.device
+    m = np.linalg.inv(np.asarray(M, np.float64).reshape(3, 3)).reshape(9)
+    sx, sy = _perspective_positions(m, h, w, dev)
+    fx, fy = torch.floor(sx), torch.floor(sy)
+    a, b = sx - fx, sy - fy
+    # far-off positions read 0 anyway: bound them before the integer cast
+    X = fx.clamp(-2, W + 1).to(torch.int64)
+    Y = fy.clamp(-2, H + 1).to(torch.int64)
+    flat = src.reshape(-1).to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def at(xx, yy):
+        ok = (xx >= 0) & (xx < W) & (yy >= 0) & (yy < H)
+        return torch.where(ok, flat[(yy.clamp(0, H - 1) * W
+                                     + xx.clamp(0, W - 1))], zero)
+
+    p00, p01 = at(X, Y), at(X + 1, Y)
+    p10, p11 = at(X, Y + 1), at(X + 1, Y + 1)
+    v0 = fma32_t(a, p01 - p00, p00)
+    v1 = fma32_t(a, p11 - p10, p10)
+    v = fma32_t(b, v1 - v0, v0)
+    return torch.round(v).clamp(0, 255).to(torch.uint8)

@@ -28,6 +28,15 @@ rank's function returned.
   pixel by MIN, the owning rank by MIN (the lowest wins a tie), and the
   owner's rows by a masked SUM, exact since one rank adds a nonzero row.
   The 1-px hole fill runs after the combine, in z space.
+* **The dense step sharded** (backend "xla", the JAX package's
+  ``shard_volume_state`` + the same ``fusion_step``): the trilinear
+  ray-march probe reads across slab edges, so each rank gets the next
+  slab's first plane of diff and of the histogram (``broadcast``) and
+  the march runs in rounds, each rank advancing the rays whose samples
+  its slab owns, the rays' state summed over the mesh after each round;
+  the owner of a hit samples the histogram there. Then
+  ``fuse_frame_dense`` on the slab with its x offset. No rank holds more
+  than its slab and one plane.
 * **Data parallelism.** One step on the global batch, as the JAX package's
   jit over a sharded batch: each rank draws the same global batch and
   keeps its slice (``shard_batch``); each loss is its global numerator
@@ -54,9 +63,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from slam_maskrcnn_tpu_torch.device import resolve_device
 from slam_maskrcnn_tpu_torch.fusion.associate import (apply_relabel,
                                                       associate_instances)
-from slam_maskrcnn_tpu_torch.fusion.fuse import fuse_frame
+from slam_maskrcnn_tpu_torch.fusion import raycast
+from slam_maskrcnn_tpu_torch.fusion.fuse import fuse_frame, fuse_frame_dense
 from slam_maskrcnn_tpu_torch.fusion.splat import (BIG, BX, _compact_shell,
                                                   _counts, _splat_from_rows,
                                                   fetch_shade_inputs,
@@ -85,7 +96,8 @@ def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
     """The mesh of this process in the initialized default process group.
     ``n_devices``: the size the caller expects (a ValueError names both
     when they differ). ``device``: this rank's device; by default
-    ``cuda:<rank % cards>`` where there is a card, else the CPU."""
+    ``cuda:<rank % cards>``, which raises without a card (pass "cpu" to
+    run the ranks on the CPU)."""
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(torch.distributed.init_process_group, or run "
@@ -95,17 +107,18 @@ def make_mesh(n_devices: int | None = None, device=None) -> Mesh:
         raise ValueError(f"a mesh of {n_devices} ranks was asked for in a "
                          f"process group of {size}")
     if device is None:
-        device = (f"cuda:{rank % torch.cuda.device_count()}"
-                  if torch.cuda.is_available() else "cpu")
-    device = torch.device(device)
+        resolve_device("cuda")
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+    device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return Mesh(rank, size, device)
 
 
-def single_mesh(device="cpu") -> Mesh:
-    """A mesh of one rank, no process group."""
-    return Mesh(0, 1, torch.device(device))
+def single_mesh(device="cuda") -> Mesh:
+    """A mesh of one rank, no process group, on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    return Mesh(0, 1, resolve_device(device))
 
 
 def all_reduce(t: torch.Tensor, op: str, mesh: Mesh) -> torch.Tensor:
@@ -128,8 +141,9 @@ def broadcast(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
 
 
 def _rank_main(rank, fn, world_size, backend, devices, init_file, out_dir,
-               threads, args):
+               threads):
     torch.set_num_threads(threads)
+    args = torch.load(os.path.join(out_dir, "args.pt"), weights_only=False)
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             world_size=world_size, rank=rank)
     try:
@@ -148,20 +162,29 @@ def launch(fn, world_size: int, backend: str = "gloo", devices=None,
     each rank's result (whatever ``torch.save`` can write), in rank order.
 
     ``fn`` must be importable in a fresh interpreter (a module-level
-    function). ``devices``: one device a rank, "cpu" for all by default;
-    two ranks may share one card over gloo. Each rank runs with
-    ``threads`` CPU threads. The rendezvous is a file in a temporary
-    directory, so concurrent launches do not collide on a port. A rank that
-    raises makes ``launch`` raise."""
+    function). ``devices``: one device a rank; by default rank r on
+    ``cuda:<r % cards>``, which raises without a card (pass ["cpu"] *
+    world_size for CPU ranks). Two ranks may share one card over gloo.
+    Each rank runs with ``threads`` CPU threads. The rendezvous is a file
+    in a temporary directory, so concurrent launches do not collide on a
+    port. A rank that raises makes ``launch`` raise."""
     import torch.multiprocessing as mp
 
-    devices = list(devices or ["cpu"] * world_size)
+    if devices is None:
+        resolve_device("cuda")
+        devices = [f"cuda:{r % torch.cuda.device_count()}"
+                   for r in range(world_size)]
+    devices = [str(resolve_device(d)) for d in devices]
     if len(devices) != world_size:
         raise ValueError(f"{len(devices)} devices for {world_size} ranks")
     with tempfile.TemporaryDirectory() as tmp:
+        # the arguments travel by file: a spawn pipe holds 64 KiB, so
+        # larger ones would make each rank's start wait for the previous
+        # rank to finish its imports
+        torch.save(args, os.path.join(tmp, "args.pt"))
         mp.spawn(_rank_main, args=(fn, world_size, backend, devices,
                                    os.path.join(tmp, "rendezvous"), tmp,
-                                   threads, args),
+                                   threads),
                  nprocs=world_size, join=True)
         return [torch.load(os.path.join(tmp, f"{r}.pt"), weights_only=False)
                 for r in range(world_size)]
@@ -340,57 +363,227 @@ def _combine(z2: torch.Tensor, rows: torch.Tensor, mesh: Mesh,
     return gz, rows, owned
 
 
+def _slab_halo(t: torch.Tensor, mesh: Mesh) -> torch.Tensor | None:
+    """The next rank's first x-plane of ``t`` (None on the last rank): each
+    rank r > 0 broadcasts its plane 0 in turn, and rank r - 1 keeps it."""
+    out = None
+    for r in range(1, mesh.size):
+        buf = t[0].clone() if mesh.rank == r else torch.empty_like(t[0])
+        broadcast(buf, mesh, src=r)
+        if mesh.rank == r - 1:
+            out = buf
+    return out
+
+
+def _owned(t: torch.Tensor, mine: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every rank's copy of ``t`` where one rank owns each element
+    (``mine``, at most one rank true per element): a SUM of the owners'
+    bits, 32-bit integers over the wire, so that every value (-0.0
+    included) arrives as it left."""
+    if mesh.size == 1:
+        return t
+    bits = t.view(torch.int32) if t.dtype == torch.float32 else t.to(
+        torch.int32)
+    mine = mine.view(mine.shape + (1,) * (t.dim() - mine.dim()))
+    got = all_reduce(torch.where(mine, bits, torch.zeros_like(bits)), "sum",
+                     mesh)
+    return got.view(torch.float32) if t.dtype == torch.float32 else got.to(
+        t.dtype)
+
+
+_RAY_FIELDS = ("t", "f_t", "step", "t_hit", "alive", "hit", "n")
+
+
+def sharded_ray_march(slab: TSDFState, o: torch.Tensor, d: torch.Tensor,
+                      cfg, mesh: Mesh, halo: torch.Tensor | None):
+    """``raycast.ray_march`` of the whole volume, on x-slabs: (hit, t_hit)
+    on every rank, bit-equal to one rank's.
+
+    A ray's samples are owned by the slab holding their corner base x
+    (``raycast.grid_floor``, clamped to the grid); with the next slab's
+    first plane (``halo``, of diff) the owner reads every corner. The
+    march runs in rounds: in each, every rank advances the live rays its
+    slab owns, one ``raycast.march_update`` an iteration as one rank
+    would, until none is left (a ray hit, ran out, left the slab or took
+    cfg.max_march_steps steps: a per-ray count stands in for the one-rank
+    loop's global one, since every live ray steps once an iteration); the
+    rays in flight are a set compacted whenever fewer than half of it are
+    still moving, so an iteration costs about what is left of the march.
+    Then the state of the rays each rank moved is summed over the mesh.
+    A ray's x is monotone in t, so it crosses the slabs in order and the
+    rounds are at most the mesh's size."""
+    dev = slab.device
+    Xl, Y, Z = slab.diff.shape
+    dims = (Xl * mesh.size, Y, Z)
+    x0 = mesh.rank * Xl
+    vs, vx = raycast._t(slab.vol_start, dev), raycast._t(slab.voxel, dev)
+    voxel0 = float(slab.voxel[0])
+    o = o.to(torch.float32).expand_as(d)
+    tnear, tfar = raycast.march_bounds(slab, o, d)
+
+    def mine(p):
+        fl, _ = raycast.grid_floor(p, vs, vx, dims)
+        return fl[..., 0].clamp(0, dims[0] - 1) // Xl == mesh.rank
+
+    def sample(p):
+        return raycast.trilinear(slab.diff, vs, vx, p, x0=x0, dims=dims,
+                                 halo=halo)
+
+    t0 = tnear + 1e-6
+    p0 = o + t0[..., None] * d
+    ray = raycast.march_start(t0, _owned(sample(p0), mine(p0), mesh), tnear,
+                              tfar, voxel0)
+    ray["n"] = torch.zeros_like(t0, dtype=torch.int32)
+    flat = {f: ray[f].view(-1) for f in _RAY_FIELDS}
+    of, df, tf = o.reshape(-1, 3), d.reshape(-1, 3), tfar.reshape(-1)
+    cap = cfg.max_march_steps
+    while bool((flat["alive"] & (flat["n"] < cap)).any()):
+        # this rank's live rays, advanced as a set that drops the rays that
+        # stopped or left the slab (written back as they are dropped)
+        sel = torch.nonzero(flat["alive"] & (flat["n"] < cap)
+                            & mine(of + flat["t"][:, None] * df))[:, 0]
+        moved = torch.zeros_like(flat["alive"])
+        moved[sel] = True
+        sub = {f: flat[f][sel] for f in _RAY_FIELDS}
+        o_s, d_s, tfar_s = of[sel], df[sel], tf[sel]
+        while True:
+            p = o_s + sub["t"][:, None] * d_s
+            active = sub["alive"] & (sub["n"] < cap) & mine(p)
+            left = int(active.sum())          # one sync an iteration
+            if 2 * left < sel.numel():
+                # drop the stopped rays once fewer than half are left
+                keep = torch.nonzero(active)[:, 0]
+                for f in _RAY_FIELDS:
+                    flat[f][sel] = sub[f]
+                sel = sel[keep]
+                sub = {f: v[keep] for f, v in sub.items()}
+                o_s, d_s, tfar_s, p, active = (
+                    o_s[keep], d_s[keep], tfar_s[keep], p[keep],
+                    active[keep])
+            if not left:
+                break
+            raycast.march_update(sub, sample(p), active, tfar_s, voxel0)
+            sub["n"] = sub["n"] + active.to(torch.int32)
+        if mesh.size > 1:
+            anyone = all_reduce(moved.to(torch.int32), "sum", mesh) > 0
+            for f in _RAY_FIELDS:
+                flat[f] = torch.where(anyone, _owned(flat[f], moved, mesh),
+                                      flat[f])
+    shape = t0.shape
+    return flat["hit"].view(shape), flat["t_hit"].view(shape)
+
+
+def sharded_back_project_probe(slab: TSDFState, extrinsic2init,
+                               intrinsic_inv, H: int, W: int, cfg,
+                               mesh: Mesh):
+    """``raycast.back_project_probe`` of the whole volume on x-slabs:
+    (probs [H, W, K], box_mask) on every rank, bit-equal to one rank's.
+    One plane of diff and of hist comes from the next rank (the halo);
+    the march is ``sharded_ray_march``; the owner of each hit samples the
+    histogram there and the rows are summed over the mesh."""
+    o, d = raycast.probe_rays(slab, extrinsic2init, intrinsic_inv, H, W)
+    hit, t_hit = sharded_ray_march(slab, o, d, cfg, mesh,
+                                   _slab_halo(slab.diff, mesh))
+    hist_halo = _slab_halo(slab.hist, mesh)
+    Xl, Y, Z = slab.diff.shape
+    dims = (Xl * mesh.size, Y, Z)
+    p = o + t_hit[..., None] * d
+    fl, _ = raycast.grid_floor(p, slab.vol_start, slab.voxel, dims)
+    mine = hit & (fl[..., 0].clamp(0, dims[0] - 1) // Xl == mesh.rank)
+    cnts = raycast.trilinear(slab.hist, slab.vol_start, slab.voxel, p,
+                             unsigned=True, x0=mesh.rank * Xl, dims=dims,
+                             halo=hist_halo)
+    probs = _owned(torch.where(mine[..., None], cnts,
+                               torch.zeros_like(cnts)), mine, mesh)
+    return probs, probs > cfg.box_mask_thresh
+
+
 def make_sharded_fusion_step(cfg, mesh: Mesh, max_blocks: int = 4096,
                              max_rows: int = 8192,
-                             max_surface: int = 512 * 1024):
-    """The volume-sharded fusion step (the JAX ``make_sharded_fusion_step``,
-    sharding.py:92-214). Returns ``step(slab, depth, color, mask, e2i,
-    intrinsic) -> (slab, relabeled mask, misses)``, in place on this
-    rank's slab (``shard_volume_state``), frame tensors on the mesh's
+                             max_surface: int = 512 * 1024,
+                             backend: str = "pallas"):
+    """The volume-sharded fusion step. Returns ``step(slab, depth, color,
+    mask, e2i, intrinsic) -> (slab, relabeled mask, misses)``, in place on
+    this rank's slab (``shard_volume_state``), frame tensors on the mesh's
     device and replicated.
 
-    From the second fused frame on, each rank splats its slab from the
-    sensor camera (the splat probe whatever ``cfg.probe_mode`` says, as
-    the JAX step: exact form, shell band 0.999, no row cap, no key-space
-    fill, and per slab the budgets ``max_blocks``, ``max_rows``,
-    ``max_surface``, the JAX step's defaults) and fetches its voxels'
-    histogram rows; the combine, the hole fill and the association follow
-    (module docstring), and rank 0's relabel table and id count are
-    broadcast so that the ranks cannot drift. Then the fuse kernel runs on
-    the slab with its x offset. ``misses``: the budget overflow summed
-    over the ranks (0-d int64; the fuse itself misses nothing)."""
+    backend "pallas" (the JAX ``make_sharded_fusion_step``,
+    sharding.py:92-214): from the second fused frame on, each rank splats
+    its slab from the sensor camera (the splat probe whatever
+    ``cfg.probe_mode`` says, as the JAX step: exact form, shell band
+    0.999, no row cap, no key-space fill, and per slab the budgets
+    ``max_blocks``, ``max_rows``, ``max_surface``, the JAX step's
+    defaults) and fetches its voxels' histogram rows; the combine, the
+    hole fill and the association follow (module docstring). Then the fuse
+    kernel runs on the slab with its x offset. ``misses``: the budget
+    overflow summed over the ranks (0-d int64; the fuse itself misses
+    nothing).
+
+    backend "xla" (the JAX package's ``shard_volume_state`` and the same
+    ``fusion_step`` on the dense state, its histogram at cfg.hist_dtype):
+    the trilinear ray-march probe across the slabs
+    (``sharded_back_project_probe``), association, relabel and
+    ``fuse_frame_dense`` on the slab with its x offset; equal to one
+    rank's ``pipeline.fusion_step_dense`` bit for bit. The budgets do not
+    apply and ``misses`` is 0 (the march misses nothing). The inverse
+    intrinsic is the f32 inverse of ``intrinsic``, as ``SemanticFusion``
+    takes it.
+
+    Either way rank 0's relabel table and id count are broadcast, so that
+    the ranks cannot drift."""
+    if backend not in ("pallas", "xla"):
+        raise ValueError(f"backend {backend!r}: 'pallas' or 'xla'")
+    if backend == "xla" and cfg.majority_vote:
+        raise ValueError("the dense sharded step associates through the "
+                         "instance histogram, which majority-vote mode does "
+                         "not keep")
     K = cfg.max_objects
 
-    def step(vol: TSDFState, depth, color, mask, extrinsic2init, intrinsic):
+    def probe(vol, depth, extrinsic2init, intrinsic):
         H, W = depth.shape
+        if backend == "xla":
+            Kinv = np.linalg.inv(np.asarray(intrinsic, np.float32)).astype(
+                np.float32)
+            probs, bm = sharded_back_project_probe(
+                vol, extrinsic2init, Kinv, H, W, cfg, mesh)
+            return probs, bm, torch.zeros((), dtype=torch.int64,
+                                          device=vol.device)
+        x0 = mesh.rank * vol.diff.shape[0]
+        M, m4 = pinhole_of_extrinsic(extrinsic2init, intrinsic)
+        shell = _compact_shell(vol, max_blocks, max_rows, 0.999, x0)
+        zbuf, vid, ovf, _ = _splat_from_rows(
+            shell, M, m4, H, W, max_blocks, max_rows, max_surface, 0,
+            fill=False)
+        vd2 = vid.view(H, W)
+        rows = torch.where((vd2 >= 0)[..., None],
+                           _counts(vol.hist, vd2).float(),
+                           torch.zeros((), device=vol.device))
+        gz, probs, _ = _combine(zbuf.view(H, W), rows, mesh)
+        _, probs = _fill_holes_probs(gz, probs, BIG)
+        return probs, probs > cfg.box_mask_thresh, all_reduce(
+            ovf.to(torch.int64), "sum", mesh)
+
+    def step(vol: TSDFState, depth, color, mask, extrinsic2init, intrinsic):
         dev = vol.device
         x0 = mesh.rank * vol.diff.shape[0]
         if vol.n_obs > 0:
-            M, m4 = pinhole_of_extrinsic(extrinsic2init, intrinsic)
-            shell = _compact_shell(vol, max_blocks, max_rows, 0.999, x0)
-            zbuf, vid, ovf, _ = _splat_from_rows(
-                shell, M, m4, H, W, max_blocks, max_rows, max_surface, 0,
-                fill=False)
-            vd2 = vid.view(H, W)
-            rows = torch.where((vd2 >= 0)[..., None],
-                               _counts(vol.hist, vd2).float(),
-                               torch.zeros((), device=dev))
-            gz, probs, _ = _combine(zbuf.view(H, W), rows, mesh)
-            _, probs = _fill_holes_probs(gz, probs, BIG)
+            probs, bm, misses = probe(vol, depth, extrinsic2init, intrinsic)
             relabel, num_objs = associate_instances(
-                probs, probs > cfg.box_mask_thresh, mask, vol.n_obs,
-                vol.num_objs, cfg)
+                probs, bm, mask, vol.n_obs, vol.num_objs, cfg)
             relabel = broadcast(relabel.contiguous(), mesh)
             num_objs = broadcast(num_objs.reshape(1).clone(), mesh)[0]
-            misses = all_reduce(ovf.to(torch.int64), "sum", mesh)
         else:
             relabel = torch.arange(K, device=dev)
             num_objs = mask.max().to(torch.int32) + 1
             misses = torch.zeros((), dtype=torch.int64, device=dev)
         mask_g = apply_relabel(mask, relabel)
         vol.num_objs = num_objs
-        fuse_frame(vol, depth, color, mask_g, extrinsic2init, intrinsic, cfg,
-                   x0=x0)
+        if backend == "xla":
+            fuse_frame_dense(vol, depth, color, mask_g, extrinsic2init,
+                             intrinsic, cfg, x0=x0)
+        else:
+            fuse_frame(vol, depth, color, mask_g, extrinsic2init, intrinsic,
+                       cfg, x0=x0)
         return vol, mask_g, misses
 
     return step

@@ -127,7 +127,7 @@ def _ambiguous(vol, e2i, depth, cfg):
 @pytest.fixture(scope="module")
 def sharded(one_rank):
     """The sharded run at world 2 and 4."""
-    return {n: launch(ranks.sharded_fuse, n, args=(
+    return {n: launch(ranks.sharded_fuse, n, devices=["cpu"] * n, args=(
         CFG, one_rank["init"], one_rank["frames"], K4, MAX_BLOCKS))[0]
         for n in (2, 4)}
 
@@ -180,7 +180,7 @@ def test_sharded_fuse_within_rounding_of_jax(one_rank, sharded):
 
 def test_sharded_render_within_one_percent(one_rank):
     cfg = FusionConfig(**CFG)
-    imgs = launch(ranks.sharded_render, 4, args=(
+    imgs = launch(ranks.sharded_render, 4, devices=["cpu"] * 4, args=(
         CFG, one_rank["state"], 0.05, one_rank["md"], K4, H, W, MAX_BLOCKS))
     for mode in ("instance", "color"):
         one = splat_render_orbit(one_rank["vol"], 0.05, one_rank["md"], K4,
@@ -198,7 +198,7 @@ def test_slabs_and_gather(one_rank):
     """A slab keeps the volume's geometry; a mesh of one gathers its own
     slab back; a slab of part of a brick raises."""
     vol = one_rank["vol"]
-    mesh = single_mesh()
+    mesh = single_mesh("cpu")
     slab = shard_volume_state(vol, mesh)
     assert slab.diff.shape == vol.diff.shape
     np.testing.assert_array_equal(slab.vol_start, vol.vol_start)
@@ -219,7 +219,7 @@ def test_slab_fuse_and_classes_at_x0(one_rank):
     whole = init_from_first_frame(cfg, one_rank["d0"], K4, one_rank["md"],
                                   device="cpu")
     p = fuse_params(whole, e2i, K4, cfg)
-    slab = shard_volume_state(whole, type(single_mesh())(
+    slab = shard_volume_state(whole, type(single_mesh("cpu"))(
         1, 2, torch.device("cpu")))
     args = (torch.from_numpy(d), torch.from_numpy(c), torch.from_numpy(m), p)
     fuse_frame_plain(whole, *args)

@@ -123,7 +123,7 @@ def data_parallel(fixtures, tmp_path_factory):
         args.append((dp, state, batch, pos, neg, LR, "all"))
     over, state = fixtures[CASES[0]][:2]
     logs = str(tmp_path_factory.mktemp("dp_logs"))
-    out = launch(ranks.dp_steps, 2, args=(
+    out = launch(ranks.dp_steps, 2, devices=["cpu"] * 2, args=(
         args, (dict(over, IMAGES_PER_GPU=1), state, logs)), threads=2)
     steps = {case: (out[0][0][i], out[1][0][i])
              for i, case in enumerate(CASES)}

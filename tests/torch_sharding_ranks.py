@@ -152,3 +152,30 @@ def dp_steps(mesh, cases: list, train_case: tuple) -> tuple:
     the mesh), then ``dp_train(mesh, *train_case)``, in one launch."""
     return [dp_step(mesh, *case) for case in cases], dp_train(mesh,
                                                              *train_case)
+
+
+def sharded_fuse_dense(mesh, cases: list) -> list:
+    """The dense ("xla") sharded fusion step over each case's frames:
+    ``cases`` holds (cfg kwargs, the volume's (vol_start, vol_end), frames
+    [(depth, color, mask, e2i)], intrinsic), fused into an empty volume.
+    Per case, rank 0 returns the gathered state, and every rank its
+    relabeled masks and misses."""
+    from slam_maskrcnn_tpu_torch.fusion.state import init_state
+
+    out = []
+    for cfg_kwargs, (vs, ve), frames, intrinsic in cases:
+        cfg = FusionConfig(**cfg_kwargs)
+        vol = shard_volume_state(init_state(cfg, vs, ve, device="cpu"), mesh)
+        step = make_sharded_fusion_step(cfg, mesh, backend="xla")
+        masks, misses = [], []
+        for d, c, m, e2i in frames:
+            vol, mask_g, miss = step(vol, torch.from_numpy(d),
+                                     torch.from_numpy(c),
+                                     torch.from_numpy(m), e2i, intrinsic)
+            masks.append(mask_g.numpy().copy())
+            misses.append(int(miss))
+        whole = gather_volume_state(vol, mesh)
+        out.append(dict(masks=np.stack(masks), misses=misses,
+                        state=None if whole is None else
+                        _state_arrays(whole)))
+    return out
