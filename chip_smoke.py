@@ -59,6 +59,11 @@
    and timed at 480 x 640; the two-view SfM (SIFT, matching, RANSAC,
    rectification with the warps, SGBM) on a 480 x 640 synthetic pair
    against its CPU run, with stage times.
+9. JPEG and MJPEG-AVI I/O, the captions and the demo (``viz_phase``): a
+   seeded JPEG corpus made by the port's encoder, decoded on the card
+   bit-equal to the CPU; ``samples/demo.main`` at full COCO width on
+   three of them; captions on the trained shapes detector's detections;
+   the balloon splash of an MJPEG AVI, each described in the function.
 
 Prints the card's name and power limit, one {"kernels": [...]} line (a
 row's "launches" is the total of "launches_by_path", the counts of the two
@@ -1818,6 +1823,62 @@ class ShapeCalls:
             setattr(mod, attr, orig)
 
 
+def hold_captured(calls, tag):
+    """Each NMS and ROIAlign launch captured by ``calls`` (a ShapeCalls)
+    against its plain version on the same inputs, timed, with bounds:
+    ({nms shape: row}, {roi_align shape: row})."""
+    import torch
+    from slam_maskrcnn_tpu_torch.ops import nms as nm
+    from slam_maskrcnn_tpu_torch.ops import roi_align as ra
+
+    nms_rows, roi_rows = {}, {}
+    for key in sorted(k for k in calls.seen if k[0] == "nms"):
+        b, s, cap, thr, sthr = calls.seen[key]
+        ki, kv = nm._nms_cuda(b, s, cap, thr, sthr)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        plain = [nm.non_max_suppression_plain(b[i], s[i], cap, thr, sthr)
+                 for i in range(s.shape[0])]
+        torch.cuda.synchronize()
+        t_p = (time.time() - t0) * 1e3
+        for i, (pi, pv) in enumerate(plain):
+            check(torch.equal(ki[i], pi) and torch.equal(kv[i], pv),
+                  f"{tag} nms {key} image {i}: kernel != plain")
+        t_k = cuda_time_ms(lambda: nm._nms_cuda(b, s, cap, thr, sthr), 10)
+        sel = kv.sum(1)
+        n = s.shape[1]
+        bms, by = bound_ms(s.shape[0] * (n * 20 + cap * 5),
+                           int((sel + 1).sum()) * n * 12)
+        name = f"batch{key[1]}_n{n}_out{cap}_iou{key[4]}"
+        nms_rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bms,
+                              bound_by=by, max_abs_err=0.0,
+                              selections=sel.tolist())
+        log(f"[{tag}] nms {name}: equal to the plain version in every "
+            f"image; kernel {t_k:.4f} ms, plain {t_p:.1f} ms, bound "
+            f"{bms:.5f} ms ({by}), selections {sel.tolist()}")
+    for key in sorted(k for k in calls.seen if k[0] == "roi_align"):
+        feats, boxes, p, shape = calls.seen[key]
+        k_ = ra._roi_align_cuda(feats, boxes, p, shape)
+        pl = ra.pyramid_roi_align_plain(feats, boxes, p, shape)
+        err = float((k_ - pl).abs().max())
+        check(err <= 1e-4, f"{tag} roi_align {key}: err {err}")
+        t_k = device_ms(lambda: ra._roi_align_cuda(feats, boxes, p, shape))
+        t_p = cuda_time_ms(lambda: ra.pyramid_roi_align_plain(
+            feats, boxes, p, shape), 2)
+        n_out = boxes.shape[0] * boxes.shape[1] * p * p * feats[0].shape[-1]
+        bms, by = bound_ms(roi_read_bytes(feats, boxes, p, shape)
+                           + boxes.numel() * 4 + n_out * 4, n_out * 11)
+        name = (f"pool{p}_batch{boxes.shape[0]}_rois{boxes.shape[1]}_"
+                f"{feats[0].shape[1] * 4}px_{str(feats[0].dtype)[6:]}")
+        roi_rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bms,
+                              bound_by=by, max_abs_err=err)
+        log(f"[{tag}] roi_align {name}: max |kernel - plain| {err:.3e}; "
+            f"kernel {t_k:.4f} ms (device), plain {t_p:.3f} ms, bound "
+            f"{bms:.5f} ms ({by})")
+        del k_, pl
+    return nms_rows, roi_rows
+
+
 def samples_phase(dev):
     """Phase 8: the samples on the card through their entry points.
 
@@ -1859,8 +1920,6 @@ def samples_phase(dev):
     from slam_maskrcnn_tpu_torch.models.anchors import get_anchors
     from slam_maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
     from slam_maskrcnn_tpu_torch.models.targets import draw_target_noise
-    from slam_maskrcnn_tpu_torch.ops import nms as nm
-    from slam_maskrcnn_tpu_torch.ops import roi_align as ra
     from slam_maskrcnn_tpu_torch.samples import (balloon, mask_image,
                                                  mini_coco, nucleus)
     from slam_maskrcnn_tpu_torch.samples.coco import CocoDataset
@@ -2141,51 +2200,7 @@ def samples_phase(dev):
 
     # ---- 6. the kernels at the samples' shapes against their plain
     # versions, timed, with bounds
-    nms_rows, roi_rows = {}, {}
-    for key in sorted(k for k in calls.seen if k[0] == "nms"):
-        b, s, cap, thr, sthr = calls.seen[key]
-        ki, kv = nm._nms_cuda(b, s, cap, thr, sthr)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        plain = [nm.non_max_suppression_plain(b[i], s[i], cap, thr, sthr)
-                 for i in range(s.shape[0])]
-        torch.cuda.synchronize()
-        t_p = (time.time() - t0) * 1e3
-        for i, (pi, pv) in enumerate(plain):
-            check(torch.equal(ki[i], pi) and torch.equal(kv[i], pv),
-                  f"samples nms {key} image {i}: kernel != plain")
-        t_k = cuda_time_ms(lambda: nm._nms_cuda(b, s, cap, thr, sthr), 10)
-        sel = kv.sum(1)
-        n = s.shape[1]
-        bms, by = bound_ms(s.shape[0] * (n * 20 + cap * 5),
-                           int((sel + 1).sum()) * n * 12)
-        name = f"batch{key[1]}_n{n}_out{cap}_iou{key[4]}"
-        nms_rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bms,
-                              bound_by=by, max_abs_err=0.0,
-                              selections=sel.tolist())
-        log(f"[samples] nms {name}: equal to the plain version in every "
-            f"image; kernel {t_k:.4f} ms, plain {t_p:.1f} ms, bound "
-            f"{bms:.5f} ms ({by}), selections {sel.tolist()}")
-    for key in sorted(k for k in calls.seen if k[0] == "roi_align"):
-        feats, boxes, p, shape = calls.seen[key]
-        k_ = ra._roi_align_cuda(feats, boxes, p, shape)
-        pl = ra.pyramid_roi_align_plain(feats, boxes, p, shape)
-        err = float((k_ - pl).abs().max())
-        check(err <= 1e-4, f"samples roi_align {key}: err {err}")
-        t_k = device_ms(lambda: ra._roi_align_cuda(feats, boxes, p, shape))
-        t_p = cuda_time_ms(lambda: ra.pyramid_roi_align_plain(
-            feats, boxes, p, shape), 2)
-        n_out = boxes.shape[0] * boxes.shape[1] * p * p * feats[0].shape[-1]
-        bms, by = bound_ms(roi_read_bytes(feats, boxes, p, shape)
-                           + boxes.numel() * 4 + n_out * 4, n_out * 11)
-        name = (f"pool{p}_batch{boxes.shape[0]}_rois{boxes.shape[1]}_"
-                f"{feats[0].shape[1] * 4}px_{str(feats[0].dtype)[6:]}")
-        roi_rows[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=bms,
-                              bound_by=by, max_abs_err=err)
-        log(f"[samples] roi_align {name}: max |kernel - plain| {err:.3e}; "
-            f"kernel {t_k:.4f} ms (device), plain {t_p:.3f} ms, bound "
-            f"{bms:.5f} ms ({by})")
-        del k_, pl
+    nms_rows, roi_rows = hold_captured(calls, "samples")
     del calls
     torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
@@ -3015,6 +3030,289 @@ def two_view_check(dev):
     return res
 
 
+VIZ_SIZES = ((480, 640), (1024, 1024))   # the JPEG corpus's images
+VIZ_REPS = 3                   # timed decodes of each JPEG, the median kept
+VIZ_VIDEO = (8, 480, 640)      # frames, height, width of the splash video
+VIZ_FPS = 12.5
+
+
+def _viz_photo(h, w, seed):
+    """A seeded photo-like BGR image: smooth colour fields, a few hard
+    shapes (data/draw.py) and sensor noise."""
+    from slam_maskrcnn_tpu_torch.data import draw
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    f = [rng.uniform(20, 90) for _ in range(6)]
+    img = np.stack([128 + 80 * np.sin(xx / f[c] + c) * np.cos(yy / f[c + 3])
+                    for c in range(3)], -1)
+    img = np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+    for _ in range(6):
+        c = tuple(int(v) for v in rng.integers(0, 256, 3))
+        x, y = int(rng.integers(0, w)), int(rng.integers(0, h))
+        r = int(rng.integers(h // 20, h // 6))
+        if rng.random() < 0.5:
+            draw.circle(img, (x, y), r, c)
+        else:
+            draw.rectangle(img, (x - r, y - r // 2), (x + r, y + r // 2), c)
+    return img
+
+
+def _shapes_frame(h, w, k, seed=5):
+    """Frame k of the splash video: three large shapes (a square, a circle,
+    a triangle, as the shapes dataset draws them) drifting over a flat
+    ground, in colours away from saturation, BGR."""
+    from slam_maskrcnn_tpu_torch.data import draw
+    rng = np.random.default_rng(seed)
+    img = np.empty((h, w, 3), np.uint8)
+    img[:] = rng.integers(40, 216, 3)
+    for j, kind in enumerate(("square", "circle", "triangle")):
+        c = tuple(int(v) for v in rng.integers(40, 216, 3))
+        s = int(rng.integers(h // 10, h // 6))
+        x = int(w * (0.2 + 0.3 * j) + 6 * k)
+        y = int(h * 0.5 + (j - 1) * h * 0.22)
+        if kind == "square":
+            draw.rectangle(img, (x - s, y - s), (x + s, y + s), c)
+        elif kind == "circle":
+            draw.circle(img, (x, y), s, c)
+        else:
+            pts = np.array([[x, y - s], [x - s, y + s], [x + s, y + s]])
+            draw.fill_poly(img, pts, c)
+    return img
+
+
+def _ink_outside(base, comp, dets, names, H, W):
+    """Pixels drawn by display_instances' boxes and captions (comp against
+    the boxless composite base) outside every detection's outline band
+    and caption band, and the detections whose bands hold no ink."""
+    ink = (comp != base).any(-1)
+    allowed = np.zeros((H, W), bool)
+    empty = []
+    for i, (y1, x1, y2, x2) in enumerate(dets["rois"].astype(int)):
+        band = np.zeros((H, W), bool)
+        band[max(y1 - 2, 0):y2 + 3, max(x1 - 2, 0):x2 + 3] = True
+        band[y1 + 2:max(y2 - 1, y1 + 2), x1 + 2:max(x2 - 1, x1 + 2)] = False
+        cap = f"{names[dets['class_ids'][i]]} {dets['scores'][i]:.3f}"
+        base_y = max(y1 - 4, 10)
+        band[max(base_y - 11, 0):base_y + 4,
+             max(x1 - 1, 0):x1 + 11 * len(cap) + 2] = True
+        if not (ink & band).any():
+            empty.append(i)
+        allowed |= band
+    return int((ink & ~allowed).sum()), empty
+
+
+def viz_phase(dev):
+    """Phase 10: JPEG and MJPEG-AVI I/O, the captions and the demo on the
+    card (``viz_phase``).
+
+    (a) a seeded corpus made by the port's encoder (on the card, its
+        bytes equal to the CPU encoder's): VIZ_SIZES at 4:2:0 / 4:2:2 /
+        4:4:4 / gray, 4:2:0 with restart markers, and progressive; each
+        decoded on the card and on the CPU, bit-equal; ms per image split
+        into host entropy decoding and device pixel stages;
+    (b) ``samples/demo.main`` on three of those JPEGs at full
+        CocoInferenceConfig width (ResNet-101, 1024^2, 81 classes),
+        seeded weights: ms per image by stage (read, detect, composite,
+        write); each written _det.png reads back equal to the composite;
+        the NMS and ROIAlign launches of its detects counted (path
+        "demo");
+    (c) ``display_instances`` with captions on the trained shapes
+        detector's card detections (weights/shapes_r2_f16.h5, the 20
+        committed scenes): every detection's outline and caption ink
+        lies in its box's outline and caption bands, and each band has
+        ink;
+    (d) ``balloon.detect_and_color_splash(video_path=...)`` with the
+        trained shapes detector on a VIZ_VIDEO MJPEG AVI written by the
+        port (path "balloon_video"): the output's frame count, size and
+        fps equal the input's; each output frame is the port's JPEG of
+        ``color_splash`` of its decoded input frame under that frame's
+        masks, byte for byte, and within PSNR 35 dB of that splash; ms
+        per frame;
+    then the NMS and ROIAlign kernels at these paths' shapes against
+    their plain versions.
+
+    Returns (launches by path, {"nms": extra, "roi_align": extra},
+    summary)."""
+    import os
+    import shutil
+    import torch
+    from slam_maskrcnn_tpu_torch import kernels
+    from slam_maskrcnn_tpu_torch.data import avi, jpeg
+    from slam_maskrcnn_tpu_torch.data.image_io import imread
+    from slam_maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
+    from slam_maskrcnn_tpu_torch.samples import balloon, demo
+    from slam_maskrcnn_tpu_torch.samples.train_shapes import (
+        InferenceShapesConfig, detect_scenes)
+    from slam_maskrcnn_tpu_torch.viz.visualize import display_instances
+
+    t_phase = time.time()
+    jpeg.native()
+    log(f"[viz] host library (csrc/jpeg.cpp) built and "
+        f"loaded in {time.time() - t_phase:.1f} s")
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(here, "build", "viz")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    by_path, summary = {}, {}
+
+    def counted(path, fn):
+        torch.cuda.synchronize()
+        kernels.launches.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[path] = dict(kernels.launches.counts)
+        return out
+
+    # ---- (a) the corpus: encoded on the card, decoded on card and CPU
+    corpus = []
+    for k, (h, w) in enumerate(VIZ_SIZES):
+        img = _viz_photo(h, w, 100 + k)
+        for name, kw in (("420", {}), ("422", dict(sampling="422")),
+                         ("444", dict(sampling="444")), ("gray", {}),
+                         ("420_rst", dict(restart_interval=4)),
+                         ("progressive", dict(progressive=True))):
+            src = img[..., 1].copy() if name == "gray" else img
+            t0 = time.perf_counter()
+            data = jpeg.encode(src, quality=95, device=dev, **kw)
+            t_enc = (time.perf_counter() - t0) * 1e3
+            check(data == jpeg.encode(src, quality=95, device="cpu", **kw),
+                  f"jpeg {h}x{w} {name}: card encoder bytes != CPU's")
+            path = os.path.join(work, f"img_{h}x{w}_{name}.jpg")
+            with open(path, "wb") as f:
+                f.write(data)
+            corpus.append((f"{h}x{w}_{name}", path, data, t_enc))
+    jpeg.decode(corpus[0][2], dev)                         # warm-up
+    rows = {}
+    for name, path, data, t_enc in corpus:
+        card = jpeg.decode(data, dev).cpu()
+        cpu = jpeg.decode(data, "cpu")
+        check(torch.equal(card, cpu), f"jpeg {name}: card decode != CPU")
+        host, pix = [], []
+        for _ in range(VIZ_REPS):
+            _, t_h, t_p = jpeg.decode_timed(data, dev)
+            host.append(t_h * 1e3)
+            pix.append(t_p * 1e3)
+        rows[name] = dict(bytes=len(data), encode_ms=t_enc,
+                          entropy_ms=float(np.median(host)),
+                          pixel_ms=float(np.median(pix)))
+        log(f"[viz] jpeg {name}: {len(data)} bytes, card == CPU; decode "
+            f"{rows[name]['entropy_ms']:.2f} ms host entropy + "
+            f"{rows[name]['pixel_ms']:.2f} ms device pixel stages; encode "
+            f"{t_enc:.1f} ms")
+    summary["jpeg"] = rows
+
+    calls = ShapeCalls()
+    # ---- (b) the demo at full COCO width on three corpus JPEGs
+    want = (f"{VIZ_SIZES[0][0]}x{VIZ_SIZES[0][1]}_420",
+            f"{VIZ_SIZES[-1][0]}x{VIZ_SIZES[-1][1]}_422",
+            f"{VIZ_SIZES[0][0]}x{VIZ_SIZES[0][1]}_progressive")
+    picks = [c[1] for name in want for c in corpus if c[0] == name]
+    out_dir = os.path.join(work, "demo")
+    records = counted("demo", lambda: demo.main(
+        [*picks, "--out", out_dir, "--device", dev]))
+    check(len(records) == 3, f"demo wrote {len(records)} of 3 images")
+    for r in records:
+        back = imread(r["out"])
+        check(back is not None and np.array_equal(
+            back, r["composite"][:, :, ::-1]),
+            f"demo {r['out']}: the PNG does not read back as the composite")
+    ms = {k: [r["ms"][k] for r in records] for k in records[0]["ms"]}
+    summary["demo"] = dict(images=len(records), ms=ms, detections=[
+        int(len(r["detections"]["class_ids"])) for r in records])
+    log(f"[viz] demo (ResNet-101, 1024^2, 81 classes, seeded weights) on "
+        f"{len(records)} JPEGs: ms per image read {ms['read']}, detect "
+        f"{ms['detect']}, composite {ms['composite']}, write "
+        f"{ms['write']}; launches {by_path['demo']}")
+
+    # ---- (c) captions on the trained shapes detector's detections
+    names = ("BG", "square", "circle", "triangle")
+    shapes = MaskRCNN("inference", InferenceShapesConfig(), device=dev)
+    shapes.load_weights(os.path.join(here, "weights", "shapes_r2_f16.h5"))
+    n_det, t_comp = 0, 0.0
+    scenes = detect_scenes()
+    for k, (image, *_rest) in enumerate(scenes):
+        r = shapes.detect([image])[0]
+        H, W = image.shape[:2]
+        colors = [(1.0, 0.2 + 0.1 * (i % 8), 0.1) for i in range(len(
+            r["rois"]))]
+        t0 = time.perf_counter()
+        comp = display_instances(image, r["rois"], r["masks"],
+                                 r["class_ids"], names, r["scores"],
+                                 colors=colors, show=False)
+        t_comp += time.perf_counter() - t0
+        base = display_instances(image, r["rois"], r["masks"],
+                                 r["class_ids"], names, r["scores"],
+                                 colors=colors, show=False,
+                                 show_bbox=False)
+        stray, empty = _ink_outside(base, comp, r, names, H, W)
+        check(stray == 0 and not empty,
+              f"scene {k}: {stray} ink pixels outside the boxes' bands, "
+              f"detections without ink {empty}")
+        n_det += len(r["rois"])
+    check(n_det > 0, "the trained detector found nothing to caption")
+    summary["captions"] = dict(detections=n_det, ms_per_image=1e3 * t_comp
+                               / len(scenes))
+    log(f"[viz] captions: {n_det} detections on {len(scenes)} scenes, every "
+        f"outline "
+        f"and caption inside its box's bands; display_instances "
+        f"{summary['captions']['ms_per_image']:.2f} ms an image")
+
+    # ---- (d) the balloon video branch on the port's own MJPEG AVI
+    nf, vh, vw = VIZ_VIDEO
+    src = os.path.join(work, "in.avi")
+    writer = avi.AviWriter(src, VIZ_FPS, (vw, vh), device=dev)
+    for k in range(nf):
+        writer.write(_shapes_frame(vh, vw, k))
+    writer.release()
+    made = []
+    detect0 = shapes.detect
+    shapes.detect = lambda images, verbose=0: made.extend(
+        detect0(images, verbose)) or made[-len(images):]
+    t0 = time.perf_counter()
+    out = counted("balloon_video", lambda: balloon.detect_and_color_splash(
+        shapes, video_path=src, out_dir=work))
+    t_video = time.perf_counter() - t0
+    shapes.detect = detect0
+    rin, rout = avi.AviReader(src), avi.AviReader(out)
+    check((len(rout), rout.width, rout.height, rout.fps)
+          == (len(rin), rin.width, rin.height, rin.fps) == (nf, vw, vh,
+                                                            VIZ_FPS),
+          f"splash video {len(rout)} frames {rout.width}x{rout.height} "
+          f"{rout.fps} fps != the input's")
+    psnr = []
+    for k in range(nf):
+        rgb = np.ascontiguousarray(rin.read(k, device=dev)[:, :, ::-1])
+        splash = balloon.color_splash(rgb, made[k]["masks"])
+        check(rout.frame_bytes(k) == jpeg.encode(
+            np.ascontiguousarray(splash[:, :, ::-1]), device=dev),
+            f"splash frame {k}: not the port's JPEG of color_splash")
+        want = splash.astype(np.float64)
+        got = rout.read(k, device=dev)[:, :, ::-1].astype(np.float64)
+        mse = float(((got - want) ** 2).mean())
+        psnr.append(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+    check(min(psnr) > 35.0, f"splash frames PSNR {psnr} <= 35 dB")
+    masked = [int(m["masks"].any(-1).sum()) if m["masks"].shape[-1] else 0
+              for m in made]
+    summary["balloon_video"] = dict(
+        frames=nf, ms_per_frame=1e3 * t_video / nf, psnr_min=min(psnr),
+        masked_pixels=masked)
+    log(f"[viz] balloon splash video: {nf} frames {vw}x{vh} at {VIZ_FPS} "
+        f"fps in and out, PSNR to color_splash {min(psnr):.2f}-"
+        f"{max(psnr):.2f} dB, masked pixels a frame {masked}; "
+        f"{1e3 * t_video / nf:.1f} ms a frame; launches "
+        f"{by_path['balloon_video']}")
+    calls.close()
+    del shapes, made
+    torch.cuda.empty_cache()
+    nms_rows, roi_rows = hold_captured(calls, "viz")
+    del calls
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    summary["seconds"] = time.time() - t_phase
+    log(f"[viz] phase took {summary['seconds']:.1f} s")
+    return by_path, {"nms": nms_rows, "roi_align": roi_rows}, summary
+
+
 def _sum_launches(outs) -> dict:
     return {k: sum(o["launches"][k] for o in outs)
             for k in outs[0]["launches"]}
@@ -3101,12 +3399,15 @@ def main() -> int:
     sh_paths, sh_fuse, sh_summary = sharded_phase(dev)
     rows["fuse"].update(sh_fuse)
     sfm_summary = sfm_phase(dev)
+    v_paths, v_rows, v_summary = viz_phase(dev)
+    for k, extra in v_rows.items():
+        rows[k]["viz"] = extra
 
     # launches: each path was counted from 0 on its own (launches_by_path);
     # "launches" is their total. Every kernel of a path must have launched
     # in that path's run.
     by_path = {"step": launches, "paired_chunk": c_launches, **p_paths,
-               "train": t_launches, **s_paths, **sh_paths}
+               "train": t_launches, **s_paths, **sh_paths, **v_paths}
     on_path = {"step": ("fuse", "nms", "roi_align"),
                "paired_chunk": ("fuse_pair", "nms", "roi_align"),
                "detect": ("nms", "roi_align"),
@@ -3121,7 +3422,9 @@ def main() -> int:
                "balloon": ("nms", "roi_align"),
                "tracker": ("nms", "roi_align"),
                "sharded_fuse": ("fuse",),
-               "dp_train": ("nms",)}
+               "dp_train": ("nms",),
+               "demo": ("nms", "roi_align"),
+               "balloon_video": ("nms", "roi_align")}
     for path, names in on_path.items():
         check(all(by_path[path][k] > 0 for k in names),
               f"a kernel of the {path} path was never launched: "
@@ -3147,6 +3450,7 @@ def main() -> int:
     log(json.dumps({"sharded": dict(sh_summary, launches=sh_paths,
                                     card=smi)}))
     log(json.dumps({"sfm": dict(sfm_summary, card=smi)}))
+    log(json.dumps({"viz": dict(v_summary, launches=v_paths, card=smi)}))
     log(f"[total] {time.time() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [rows[k] for k in (

@@ -14,8 +14,9 @@ equal the JAX package's bit for bit.
 Where the JAX package calls cv2, the port has its own copies: molding by
 models/mask_rcnn.py ``resize_image`` (cv2's INTER_LINEAR, ops/resize.py),
 ``resize_mask`` with cv2's INTER_NEAREST index rule, ``minimize_mask``
-through ops/resize.py, and ``Dataset.load_image`` reads PNG files with
-data/png.py (there is no JPEG decoder). The ``Augmenter`` of
+through ops/resize.py, and ``Dataset.load_image`` reads PNG and JPEG
+files with data/image_io.py ``imread`` (JPEG pixel stages on the card).
+The ``Augmenter`` of
 data/augment.py is applied where the JAX package applies it, after
 molding, to the image and the masks together.
 """
@@ -117,11 +118,12 @@ class Dataset:
         return self.image_info[image_id]["path"]
 
     def load_image(self, image_id):
-        """The image as RGB u8 [H, W, 3] (PNG files, data/png.py)."""
-        from slam_maskrcnn_tpu_torch.data.png import read_png
-        img = read_png(self.image_info[image_id]["path"])
-        if img.ndim == 2:
-            img = np.repeat(img[:, :, None], 3, axis=2)
+        """The image as RGB u8 [H, W, 3] (PNG or JPEG, data/image_io.py)."""
+        from slam_maskrcnn_tpu_torch.data.image_io import imread
+        path = self.image_info[image_id]["path"]
+        img = imread(path)
+        if img is None:
+            raise FileNotFoundError(path)
         return np.ascontiguousarray(img[:, :, ::-1])
 
     def load_mask(self, image_id):

@@ -2,10 +2,15 @@
 
 The shapes dataset (data/shapes.py) draws with ``cv2.rectangle``,
 ``cv2.circle`` and ``cv2.fillPoly``, each filled, 8-connected, with no
-sub-pixel shift; where the port runs there is no cv2. These are those
-three calls in numpy, pixel for pixel (OpenCV's drawing.cpp):
+sub-pixel shift, and viz/visualize.py outlines boxes with
+``cv2.rectangle`` (thickness 1 and 2) and ``cv2.line``; where the port
+runs there is no cv2. These are those calls in numpy, pixel for pixel
+(OpenCV's drawing.cpp):
 
-* ``rectangle``: the inclusive box between the two corners, clipped;
+* ``rectangle``: filled, the inclusive box between the two corners,
+  clipped; outlined, ``PolyLine`` of ``ThickLine`` edges (``line`` at
+  thickness 1; at 2 ``FillConvexPoly`` quads in 16.16 fixed point with
+  ``Line2`` outlines, and ``Circle`` caps);
 * ``circle``: the integer midpoint circle of ``Circle`` (drawing.cpp),
   filled by horizontal spans, clipped span by span;
 * ``fill_poly``: ``CollectPolyEdges`` + ``FillEdgeCollection``: the
@@ -40,17 +45,196 @@ def _hline(img: np.ndarray, y: int, x1: int, x2: int, color) -> None:
     img[y, x1:x2 + 1] = color
 
 
-def rectangle(img: np.ndarray, pt1, pt2, color) -> np.ndarray:
-    """cv2.rectangle(img, pt1, pt2, color, -1): (x, y) corners, both
-    included."""
-    H, W = img.shape[:2]
-    x1, x2 = sorted((int(pt1[0]), int(pt2[0])))
-    y1, y2 = sorted((int(pt1[1]), int(pt2[1])))
-    x1, y1 = max(x1, 0), max(y1, 0)
-    x2, y2 = min(x2, W - 1), min(y2, H - 1)
-    if x1 <= x2 and y1 <= y2:
-        img[y1:y2 + 1, x1:x2 + 1] = color
+def rectangle(img: np.ndarray, pt1, pt2, color,
+              thickness: int = -1) -> np.ndarray:
+    """cv2.rectangle(img, pt1, pt2, color, thickness): (x, y) corners,
+    both included. thickness -1 fills; 1 and 2 draw the outline as
+    OpenCV's ``PolyLine`` of four ``ThickLine`` edges (LINE_8, shift 0):
+    at 1 four 8-connected lines, at 2 a filled quad per edge (three
+    pixels wide) and a radius-1 disc at each corner."""
+    if thickness < 0:
+        H, W = img.shape[:2]
+        x1, x2 = sorted((int(pt1[0]), int(pt2[0])))
+        y1, y2 = sorted((int(pt1[1]), int(pt2[1])))
+        x1, y1 = max(x1, 0), max(y1, 0)
+        x2, y2 = min(x2, W - 1), min(y2, H - 1)
+        if x1 <= x2 and y1 <= y2:
+            img[y1:y2 + 1, x1:x2 + 1] = color
+        return img
+    if thickness not in (1, 2):
+        raise ValueError(f"rectangle draws thickness -1, 1 or 2, got "
+                         f"{thickness}")
+    (xa, ya), (xb, yb) = (int(pt1[0]), int(pt1[1])), (int(pt2[0]),
+                                                        int(pt2[1]))
+    v = [(xa, ya), (xb, ya), (xb, yb), (xa, yb)]
+    p0 = v[3]
+    for p in v:                          # closed: every edge flags = 2
+        _thick_line(img, p0, p, color, thickness, 2)
+        p0 = p
     return img
+
+
+def line(img: np.ndarray, pt1, pt2, color, thickness: int = 1):
+    """cv2.line(img, pt1, pt2, color, 1) (LINE_8): the 8-connected
+    LineIterator's pixels, clipped."""
+    if thickness != 1:
+        raise ValueError(f"line draws thickness 1, got {thickness}")
+    _thick_line(img, (int(pt1[0]), int(pt1[1])),
+                (int(pt2[0]), int(pt2[1])), color, 1, 3)
+    return img
+
+
+def _put(img, pts, color) -> None:
+    H, W = img.shape[:2]
+    for x, y in pts:
+        if 0 <= x < W and 0 <= y < H:
+            img[y, x] = color
+
+
+def _thick_line(img, p0, p1, color, thickness: int, flags: int) -> None:
+    """ThickLine (drawing.cpp) for integer end points, LINE_8."""
+    H, W = img.shape[:2]
+    if thickness <= 1:
+        _put(img, line_points(W, H, p0, p1), color)
+        return
+    q0 = (p0[0] << XY_SHIFT, p0[1] << XY_SHIFT)
+    q1 = (p1[0] << XY_SHIFT, p1[1] << XY_SHIFT)
+    dx = (q0[0] - q1[0]) / XY_ONE
+    dy = (q1[1] - q0[1]) / XY_ONE
+    r = dx * dx + dy * dy
+    odd = thickness & 1
+    th = thickness << (XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (th + odd * XY_ONE * 0.5) / np.sqrt(r)
+        dpx, dpy = _cv_round(dy * r), _cv_round(dx * r)
+        quad = [(q0[0] + dpx, q0[1] + dpy), (q0[0] - dpx, q0[1] - dpy),
+                (q1[0] - dpx, q1[1] - dpy), (q1[0] + dpx, q1[1] + dpy)]
+        fill_convex_poly(img, quad, color)
+    c = q0
+    for i in range(2):
+        if flags & (i + 1):
+            center = ((c[0] + (XY_ONE >> 1)) >> XY_SHIFT,
+                      (c[1] + (XY_ONE >> 1)) >> XY_SHIFT)
+            circle(img, center, (th + (XY_ONE >> 1)) >> XY_SHIFT, color)
+        c = q1
+
+
+def _cv_round(v: float) -> int:
+    """cvRound: to nearest, halves to even (lrint)."""
+    return int(np.rint(v))
+
+
+def _line2(img, p1, p2, color) -> None:
+    """Line2 (drawing.cpp): an 8-connected line between 16.16 fixed-point
+    end points, clipped on the scaled image."""
+    H, W = img.shape[:2]
+    ok, p1, p2 = clip_line(W << XY_SHIFT, H << XY_SHIFT, p1, p2)
+    if not ok:
+        return
+    (x1, y1), (x2, y2) = p1, p2
+    dx, dy = x2 - x1, y2 - y1
+    j = -1 if dx < 0 else 0
+    ax = (dx ^ j) - j
+    i = -1 if dy < 0 else 0
+    ay = (dy ^ i) - i
+    pts = []
+    if ax > ay:
+        dy = (dy ^ j) - j
+        if j:
+            x1, x2, y1, y2 = x2, x1, y2, y1
+        y_step = _c_div(dy << XY_SHIFT, ax | 1)
+        ecount = (x2 - x1) >> XY_SHIFT
+    else:
+        dx = (dx ^ i) - i
+        if i:
+            x1, x2, y1, y2 = x2, x1, y2, y1
+        x_step = _c_div(dx << XY_SHIFT, ay | 1)
+        ecount = (y2 - y1) >> XY_SHIFT
+    x1 += XY_ONE >> 1
+    y1 += XY_ONE >> 1
+    pts.append(((x2 + (XY_ONE >> 1)) >> XY_SHIFT,
+                (y2 + (XY_ONE >> 1)) >> XY_SHIFT))
+    if ax > ay:
+        x1 >>= XY_SHIFT
+        while ecount >= 0:
+            pts.append((x1, y1 >> XY_SHIFT))
+            x1 += 1
+            y1 += y_step
+            ecount -= 1
+    else:
+        y1 >>= XY_SHIFT
+        while ecount >= 0:
+            pts.append((x1 >> XY_SHIFT, y1))
+            x1 += x_step
+            y1 += 1
+            ecount -= 1
+    _put(img, pts, color)
+
+
+def fill_convex_poly(img: np.ndarray, v, color) -> None:
+    """FillConvexPoly (drawing.cpp), LINE_8, on 16.16 fixed-point vertices
+    (shift XY_SHIFT, as ThickLine calls it): the outline by ``Line2``,
+    then scanlines between the two edge chains walked from the top
+    vertex."""
+    H, W = img.shape[:2]
+    npts = len(v)
+    delta = XY_ONE >> 1
+    xmin = xmax = v[0][0]
+    ymin = ymax = v[0][1]
+    imin = 0
+    p0 = v[-1]
+    for k, p in enumerate(v):
+        if p[1] < ymin:
+            ymin, imin = p[1], k
+        ymax, xmax, xmin = max(ymax, p[1]), max(xmax, p[0]), min(xmin, p[0])
+        _line2(img, p0, p, color)
+        p0 = p
+    xmin, xmax = (xmin + delta) >> XY_SHIFT, (xmax + delta) >> XY_SHIFT
+    ymin, ymax = (ymin + delta) >> XY_SHIFT, (ymax + delta) >> XY_SHIFT
+    if npts < 3 or xmax < 0 or ymax < 0 or xmin >= W or ymin >= H:
+        return
+    ymax = min(ymax, H - 1)
+    edges = npts
+    e_idx, e_di = [imin, imin], [1, npts - 1]
+    e_x, e_dx, e_ye = [-XY_ONE, -XY_ONE], [0, 0], [ymin, ymin]
+    y = ymin
+    while True:
+        for i in range(2):
+            if y >= e_ye[i]:
+                idx0, di = e_idx[i], e_di[i]
+                idx = idx0 + di
+                if idx >= npts:
+                    idx -= npts
+                while True:
+                    edges -= 1
+                    if edges < 0:
+                        break
+                    ty = (v[idx][1] + delta) >> XY_SHIFT
+                    if ty > y:
+                        xs, xe = v[idx0][0], v[idx][0]
+                        e_ye[i] = ty
+                        e_dx[i] = _c_div((xe - xs) * 2 + (ty - y),
+                                         2 * (ty - y))
+                        e_x[i] = xs
+                        e_idx[i] = idx
+                        break
+                    idx0 = idx
+                    idx += di
+                    if idx >= npts:
+                        idx -= npts
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = (1, 0) if e_x[0] > e_x[1] else (0, 1)
+            xx1 = (e_x[left] + delta) >> XY_SHIFT
+            xx2 = (e_x[right] + delta) >> XY_SHIFT
+            if xx2 >= 0 and xx1 < W:
+                _hline(img, y, max(xx1, 0), min(xx2, W - 1), color)
+        e_x[0] += e_dx[0]
+        e_x[1] += e_dx[1]
+        y += 1
+        if y > ymax:
+            break
 
 
 def circle(img: np.ndarray, center, radius: int, color) -> np.ndarray:

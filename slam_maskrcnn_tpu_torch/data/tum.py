@@ -1,7 +1,8 @@
 """TUM RGB-D dataset frontend.
 
 Copy of slam_maskrcnn_tpu/data/tum.py (the port keeps its own copy); the
-one change is that frames are read with data/png.py.
+one change is that frames are read with data/image_io.py ``imread`` in
+place of ``cv2.imread``, with the same flags.
 
 Host-side (pure numpy) re-implementation of the reference's L0 layer:
 ``read_trajactory``/``parse_extrinsic`` (``src/SfM_CUDA/utils.cu:8-75``),
@@ -25,7 +26,8 @@ import os
 
 import numpy as np
 
-from slam_maskrcnn_tpu_torch.data.png import read_png
+from slam_maskrcnn_tpu_torch.data.image_io import (IMREAD_ANYDEPTH,
+                                                   IMREAD_GRAYSCALE, imread)
 
 
 def filename_timestamp(path: str) -> float:
@@ -231,13 +233,12 @@ class TUMSequence:
         """Returns dict(depth u16 [H,W], color u8 [H,W,3] BGR, mask u8 [H,W],
         extrinsic f32 [4,4] world->camera, mean_depth float, timestamp)."""
         i, j = self.pairs[k]
-        depth = read_png(self.depth_files[i])
-        mask = read_png(self.mask_files[j]) if self.has_masks else None
+        depth = imread(self.depth_files[i], IMREAD_ANYDEPTH)
+        mask = (imread(self.mask_files[j], IMREAD_GRAYSCALE)
+                if self.has_masks else None)
         # NOTE: the reference indexes rgb by the *mask* pointer j
         # (kernel.cpp:71) — rgb and mask share timestamps by construction.
-        color = read_png(self.rgb_files[j])
-        if color.ndim == 2:                  # a gray frame, as IMREAD_COLOR
-            color = np.repeat(color[..., None], 3, axis=-1)
+        color = imread(self.rgb_files[j])
         ts = self.depth_ts[i]
         extrinsic = self.trajectory.extrinsic_at(ts, self.interpolate_poses)
         return dict(depth=depth, color=color, mask=mask, extrinsic=extrinsic,

@@ -17,15 +17,12 @@ versions the tests hold the core against.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 
-from slam_maskrcnn_tpu_torch.kernels import BUILD_DIR, CSRC
+from slam_maskrcnn_tpu_torch.kernels import (BUILD_DIR, host_library,
+                                             host_library_path)
 
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 _lock = threading.Lock()
@@ -38,10 +35,7 @@ _I64 = ctypes.c_int64
 
 def library_path() -> str:
     """The library's path, named by a hash of the source and the flags."""
-    h = hashlib.sha1(" ".join(GXX_FLAGS).encode())
-    with open(os.path.join(CSRC, "rle.cpp"), "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, f"rle-{h.hexdigest()[:12]}.so")
+    return host_library_path("rle", GXX_FLAGS, BUILD_DIR)
 
 
 def native() -> ctypes.CDLL:
@@ -50,22 +44,7 @@ def native() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        so = library_path()
-        if not os.path.exists(so):
-            gxx = shutil.which("g++")
-            if gxx is None:
-                raise RuntimeError("g++ not found: eval/rle.py builds "
-                                   "csrc/rle.cpp with it")
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [gxx, *GXX_FLAGS, "-o", tmp, os.path.join(CSRC, "rle.cpp")],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"g++ failed on csrc/rle.cpp:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib = host_library("rle", GXX_FLAGS, BUILD_DIR)
         lib.rle_encode.argtypes = [_U8P, _I64, _U32P, _I64]
         lib.rle_encode.restype = ctypes.c_int64
         lib.rle_decode.argtypes = [_U32P, _I64, _U8P, _I64]

@@ -6,7 +6,9 @@ interface, loaded with ``ctypes``); the hash covers the source, the flags
 and the shared headers ``csrc/*.cuh``. All sources are compiled in parallel
 on first use; a library whose source and flags are unchanged is reused.
 Nothing here runs when the package is imported: the CPU tests import
-every module on a machine without ``nvcc``.
+every module on a machine without ``nvcc``. ``host_library`` builds the
+host C++ sources (``csrc/*.cpp``: the RLE core, the JPEG entropy coder)
+with g++ the same way.
 
 Flags: ``sm_90a`` (Hopper), ``-O3`` and ``--fmad=false`` — no multiply-add
 contraction, so each kernel rounds exactly like its plain PyTorch version
@@ -124,6 +126,37 @@ def lib(name: str) -> ctypes.CDLL:
                     fn.restype = ctypes.c_int
                 _libs[n] = dll
         return _libs[name]
+
+
+def host_library_path(name: str, flags, build_dir: str = BUILD_DIR) -> str:
+    """Where csrc/<name>.cpp's host library goes, named by a hash of the
+    source and the g++ flags."""
+    h = hashlib.sha1(" ".join(flags).encode())
+    with open(os.path.join(CSRC, name + ".cpp"), "rb") as f:
+        h.update(f.read())
+    return os.path.join(build_dir, f"{name}-{h.hexdigest()[:12]}.so")
+
+
+def host_library(name: str, flags, build_dir: str = BUILD_DIR) -> ctypes.CDLL:
+    """csrc/<name>.cpp, a host library (not a kernel), built by g++ on
+    first use and loaded with ctypes. There is no fallback: a failed
+    build raises."""
+    so = host_library_path(name, flags, build_dir)
+    if not os.path.exists(so):
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found: csrc/{name}.cpp is built "
+                               f"with it")
+        os.makedirs(build_dir, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [gxx, *flags, "-o", tmp, os.path.join(CSRC, name + ".cpp")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on csrc/{name}.cpp:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(so)
 
 
 def check(err: int, what: str) -> None:

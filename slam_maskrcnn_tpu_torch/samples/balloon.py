@@ -3,15 +3,18 @@
 Port of slam_maskrcnn_tpu/samples/balloon.py
 (``Mask_RCNN/samples/balloon/balloon.py``): BalloonConfig (:39-63),
 BalloonDataset over the VIA polygon JSON (:66-139), ``color_splash``
-(:141-157) and ``detect_and_color_splash`` (:160-207). Image sizes come
-from the PNG header, VIA polygons are filled as cv2.fillPoly fills them
-(data/draw.py), the splash is grayed with cv2's fixed-point RGB2GRAY
-(ops/blur.py) and written by data/png.py. The port has no JPEG decoder and
-no video codec: a JPEG image raises in ``Dataset.load_image`` and the
-video branch raises ``NotImplementedError``.
+(:141-157) and ``detect_and_color_splash`` for images and video
+(:160-207). Images are sized from their PNG or JPEG headers and read by
+data/image_io.py (``imread`` in place of ``cv2.imread``), VIA polygons
+are filled as cv2.fillPoly fills them (data/draw.py), the splash is
+grayed with cv2's fixed-point RGB2GRAY (ops/blur.py); a video is a
+Motion-JPEG AVI read and written by data/avi.py (in place of
+``cv2.VideoCapture`` / ``cv2.VideoWriter(..., "MJPG")``).
 
     python -m slam_maskrcnn_tpu_torch.samples.balloon splash \
-        --weights balloon.h5 --image photo.png
+        --weights balloon.h5 --image photo.jpg
+    python -m slam_maskrcnn_tpu_torch.samples.balloon splash \
+        --weights balloon.h5 --video clip.avi
 """
 
 from __future__ import annotations
@@ -23,21 +26,8 @@ import os
 import numpy as np
 
 from slam_maskrcnn_tpu_torch.data.dataset import Dataset
+from slam_maskrcnn_tpu_torch.data.image_io import image_size
 from slam_maskrcnn_tpu_torch.models.config import Config
-
-
-def png_size(path: str) -> tuple[int, int]:
-    """(height, width) from a PNG's IHDR chunk."""
-    import struct
-
-    from slam_maskrcnn_tpu_torch.data.png import SIGNATURE, PNGError
-
-    with open(path, "rb") as f:
-        head = f.read(24)
-    if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
-        raise PNGError(f"{path}: not a PNG file (the port reads only PNG)")
-    w, h = struct.unpack(">II", head[16:24])
-    return int(h), int(w)
 
 
 class BalloonConfig(Config):
@@ -63,7 +53,7 @@ class BalloonDataset(Dataset):
                        if isinstance(a["regions"], dict) else a["regions"])
             polygons = [r["shape_attributes"] for r in regions]
             path = os.path.join(dataset_dir, a["filename"])
-            h, w = png_size(path)
+            h, w = image_size(path)
             self.add_image("balloon", image_id=a["filename"], path=path,
                            width=w, height=h, polygons=polygons)
 
@@ -101,22 +91,40 @@ def color_splash(image, mask):
 
 def detect_and_color_splash(model, image_path=None, video_path=None,
                             out_dir="."):
-    """= balloon.py:160-207 for an image (a PNG): detect, splash, write
-    ``splash_<time>.png``; returns its path. The video branch needs a
-    video codec the port does not have: it raises."""
-    from slam_maskrcnn_tpu_torch.data.png import read_png, write_png
+    """= balloon.py:160-207: detect, splash and write ``splash_<time>.png``
+    for an image, or ``splash_<time>.avi`` (Motion-JPEG, the input's size
+    and frame rate) for a Motion-JPEG AVI; returns the written path. The
+    JPEG stages run on the model's device."""
+    from slam_maskrcnn_tpu_torch.data.avi import AviReader, AviWriter
+    from slam_maskrcnn_tpu_torch.data.image_io import imread, imwrite
 
     assert image_path or video_path
-    if not image_path:
-        raise NotImplementedError(
-            "detect_and_color_splash(video_path=...): the port has no video "
-            "reader or writer (cv2.VideoCapture / VideoWriter)")
-    image = np.ascontiguousarray(read_png(image_path)[:, :, ::-1])
-    r = model.detect([image], verbose=0)[0]
-    splash = color_splash(image, r["masks"])
-    name = "splash_{:%Y%m%dT%H%M%S}.png".format(datetime.datetime.now())
+    dev = model.device
+    if image_path:
+        bgr = imread(image_path, device=dev)
+        if bgr is None:
+            raise FileNotFoundError(image_path)
+        image = bgr[:, :, ::-1]
+        r = model.detect([np.ascontiguousarray(image)], verbose=0)[0]
+        splash = color_splash(image, r["masks"])
+        name = "splash_{:%Y%m%dT%H%M%S}.png".format(datetime.datetime.now())
+        out = os.path.join(out_dir, name)
+        imwrite(out, np.ascontiguousarray(splash[:, :, ::-1]))
+        return out
+    vcapture = AviReader(video_path)
+    width, height, fps = vcapture.width, vcapture.height, vcapture.fps
+    name = "splash_{:%Y%m%dT%H%M%S}.avi".format(datetime.datetime.now())
     out = os.path.join(out_dir, name)
-    write_png(out, np.ascontiguousarray(splash[:, :, ::-1]))
+    vwriter = AviWriter(out, fps, (width, height), device=dev)
+    try:                    # the frames written so far stay a whole file
+        for i in range(len(vcapture)):
+            image = vcapture.read(i, device=dev)[:, :, ::-1]
+            r = model.detect([np.ascontiguousarray(image)], verbose=0)[0]
+            splash = color_splash(image, r["masks"])
+            vwriter.write(np.ascontiguousarray(splash[:, :, ::-1]))
+    finally:
+        vwriter.release()
+        vcapture.close()
     return out
 
 
@@ -135,8 +143,10 @@ def main(argv=None):
                    help="a Keras .h5 or a checkpoint; seeded random "
                         "weights without")
     p.add_argument("--logs", default="./logs")
-    p.add_argument("--image", default=None, help="a PNG to splash")
-    p.add_argument("--video", default=None)
+    p.add_argument("--image", default=None,
+                   help="a PNG or JPEG to splash")
+    p.add_argument("--video", default=None,
+                   help="a Motion-JPEG AVI to splash")
     p.add_argument("--epochs", type=int, default=30)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     a = p.parse_args(argv)

@@ -281,8 +281,26 @@ def test_balloon_tree_dataset_and_splash_match_jax(tmp_path, seed):
     b = tballoon.detect_and_color_splash(Stub(2), image_path=src,
                                          out_dir=str(tmp_path / "to"))
     _pixels_equal(a, b)
-    with pytest.raises(NotImplementedError, match="video"):
-        tballoon.detect_and_color_splash(Stub(2), video_path="x.avi")
+    # the video branch: a Motion-JPEG AVI of the tree's image, each output
+    # frame the port's JPEG of the splash of its decoded input frame
+    from slam_maskrcnn_tpu_torch.data import avi, jpeg
+    bgr = cv2.imread(src)
+    H, W = bgr.shape[:2]
+    w = avi.AviWriter(str(tmp_path / "in.avi"), 5.0, (W, H), device="cpu")
+    for k in range(2):
+        w.write(np.ascontiguousarray(np.roll(bgr, 3 * k, axis=1)))
+    w.release()
+    out = tballoon.detect_and_color_splash(
+        Stub(2), video_path=str(tmp_path / "in.avi"),
+        out_dir=str(tmp_path / "to"))
+    src_r, out_r = avi.AviReader(tmp_path / "in.avi"), avi.AviReader(out)
+    assert (len(out_r), out_r.width, out_r.height, out_r.fps) == \
+        (2, W, H, 5.0)
+    for k in range(2):
+        rgb = np.ascontiguousarray(src_r.read(k, device="cpu")[:, :, ::-1])
+        splash = tballoon.color_splash(rgb, Stub(2).detect([rgb])[0]["masks"])
+        assert out_r.frame_bytes(k) == jpeg.encode(
+            np.ascontiguousarray(splash[:, :, ::-1]), device="cpu")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
