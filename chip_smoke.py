@@ -1287,14 +1287,18 @@ def write_tum(root, frames, masks=True, base_ts=1311868164.0):
 
 def pipeline_phase(dev):
     """Phase 6: the trained detector and the two-stage pipeline through
-    the user's entry points. Returns (launches per path, rows of the
-    kernel checks at the pipeline's shapes, summary)."""
+    the user's entry points: the 20 scenes, stage 1 on JPEG frames (path
+    "stage1_jpeg"), stage 1 -> stage 2 on disk, the live pipeline.
+    Returns (launches per path, rows of the kernel checks at the
+    pipeline's shapes, summary)."""
     import os
     import shutil
     import torch
     from slam_maskrcnn_tpu_torch import kernels
     from slam_maskrcnn_tpu_torch.data.synthetic import (default_scene,
                                                         make_sequence)
+    from slam_maskrcnn_tpu_torch.data import jpeg
+    from slam_maskrcnn_tpu_torch.data.image_io import imread
     from slam_maskrcnn_tpu_torch.data.png import read_png
     from slam_maskrcnn_tpu_torch.data.tum import TUMSequence
     from slam_maskrcnn_tpu_torch.eval.metrics import compute_ap
@@ -1304,6 +1308,8 @@ def pipeline_phase(dev):
     from slam_maskrcnn_tpu_torch.fusion.pipeline import SemanticFusion
     from slam_maskrcnn_tpu_torch.fusion.state import (FusionConfig,
                                                       make_intrinsic)
+    from slam_maskrcnn_tpu_torch.models.mask_ops import (batch_mask_process,
+                                                         mask_detect)
     from slam_maskrcnn_tpu_torch.models.mask_rcnn import MaskRCNN
     from slam_maskrcnn_tpu_torch.ops import nms as nm
     from slam_maskrcnn_tpu_torch.ops import roi_align as ra
@@ -1312,6 +1318,7 @@ def pipeline_phase(dev):
     from slam_maskrcnn_tpu_torch.samples.live_pipeline import LivePipeline
     from slam_maskrcnn_tpu_torch.samples.train_shapes import (
         InferenceShapesConfig, detect_scenes, evaluate_map)
+    from slam_maskrcnn_tpu_torch.utils.profiling import StageTimer
 
     t_phase = time.time()
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1392,11 +1399,52 @@ def pipeline_phase(dev):
                                  / max(matched, 1), ms_per_image=ms32)
     del m32, cpu
 
+    # ---- 1b. stage 1 on JPEG frames: the synthetic TUM sequence's colour
+    # frames as q95 4:2:0 JPEGs by the port's encoder, batch_mask_process
+    # with the trained model; each mask equals mask_detect on imread's
+    # pixels
+    K4 = make_intrinsic(*PIPE_K)
+    frames = make_sequence(default_scene(), K4, H, W, n_frames=PIPE_FRAMES)
+    rgb_dir = os.path.join(work, "jpeg_frames", "rgb")
+    mask_dir = os.path.join(work, "jpeg_frames", "mask")
+    os.makedirs(rgb_dir)
+    blobs = []
+    for k, fr in enumerate(frames):
+        blobs.append(jpeg.encode(fr["color"], device=dev))
+        with open(os.path.join(rgb_dir, f"{k:06d}.jpg"), "wb") as f:
+            f.write(blobs[-1])
+    timer = StageTimer(dev)
+    n = counted("stage1_jpeg", lambda: batch_mask_process(
+        model, rgb_dir, mask_dir, verbose=False, timer=timer))
+    check(n == PIPE_FRAMES, f"stage 1 on JPEG frames wrote {n} masks")
+    n_inst = 0
+    for k in range(PIPE_FRAMES):
+        f = os.path.join(rgb_dir, f"{k:06d}.jpg")
+        got = read_png(os.path.join(mask_dir, f"{k:06d}.png"))
+        want = mask_detect(model, np.ascontiguousarray(
+            imread(f, device=dev)[:, :, ::-1]))
+        check(got.shape == (H, W) and np.array_equal(got, want),
+              f"stage 1 JPEG frame {k}: mask != mask_detect of imread")
+        n_inst += int(got.max())
+    split = [jpeg.decode_timed(b, dev)[1:] for b in blobs]
+    st = {k: v * 1e3 / n for k, v in timer.totals.items()}
+    summary["stage1_jpeg"] = dict(
+        frames=n, instances=n_inst, read_ms=st["read"],
+        detect_ms=st["detect"], write_ms=st["write"],
+        entropy_ms=float(np.median([a for a, _ in split])) * 1e3,
+        pixel_ms=float(np.median([b for _, b in split])) * 1e3,
+        bytes=int(np.mean([len(b) for b in blobs])))
+    log(f"[pipeline] stage 1 on {n} JPEG frames {H}x{W} (trained shapes "
+        f"model, bf16): each mask == mask_detect of imread's pixels, "
+        f"{n_inst} instances; ms a frame read {st['read']:.2f} (of it "
+        f"host entropy {summary['stage1_jpeg']['entropy_ms']:.2f} + device "
+        f"pixels {summary['stage1_jpeg']['pixel_ms']:.2f}, "
+        f"{summary['stage1_jpeg']['bytes']} B), detect {st['detect']:.2f}, "
+        f"write {st['write']:.2f}; launches {by_path['stage1_jpeg']}")
+
     # ---- 2. stage 1 -> stage 2 on disk: a synthetic TUM sequence, masks by
     # mask_process (COCO, ResNet-101 at 1024^2, seed-0 weights), then
     # fusion_demo on a copy holding the ground-truth masks
-    K4 = make_intrinsic(*PIPE_K)
-    frames = make_sequence(default_scene(), K4, H, W, n_frames=PIPE_FRAMES)
     n_fused = PIPE_FRAMES - 1
     seq_gt = os.path.join(work, "seq_gt")
     seq_s1 = os.path.join(work, "seq_stage1")
@@ -3080,6 +3128,60 @@ def _shapes_frame(h, w, k, seed=5):
     return img
 
 
+def _png_file(s, depth, ctype, interlace=False, plte=None, trns=None):
+    """A PNG of samples s [H, W, ch] (u8 or u16) over zlib, rows with
+    filter type 0, optionally Adam7-interlaced."""
+    import struct
+    import zlib
+    from slam_maskrcnn_tpu_torch.data.png import ADAM7, SIGNATURE, chunk
+
+    def rows(p):
+        h, w, ch = p.shape
+        if depth == 16:
+            raw = p.astype(">u2").view(np.uint8).reshape(h, -1)
+        elif depth == 8:
+            raw = p.reshape(h, -1)
+        else:
+            bits = np.unpackbits(p.reshape(h, w * ch, 1), axis=2)
+            raw = np.packbits(bits[:, :, 8 - depth:].reshape(h, -1), axis=1)
+        return np.concatenate([np.zeros((h, 1), np.uint8), raw], 1).tobytes()
+    passes = [(0, 0, 1, 1)] if not interlace else ADAM7
+    data = b"".join(rows(s[y0::dy, x0::dx]) for x0, y0, dx, dy in passes
+                    if s[y0::dy, x0::dx].size)
+    h, w = s.shape[:2]
+    out = SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                                 ctype, 0, 0, interlace))
+    if plte is not None:
+        out += chunk(b"PLTE", plte.tobytes())
+    if trns is not None:
+        out += chunk(b"tRNS", trns)
+    return out + chunk(b"IDAT", zlib.compress(data, 1)) + chunk(b"IEND", b"")
+
+
+def _png_kinds(h, w, seed=7):
+    """The PNG kinds beyond u8 gray / BGR and u16 gray: name
+    -> (bytes, channels at IMREAD_UNCHANGED, 16-bit)."""
+    rng = np.random.default_rng(seed)
+
+    def u8(ch, top=255):
+        return rng.integers(0, top + 1, (h, w, ch)).astype(np.uint8)
+
+    def u16(ch):
+        return rng.integers(0, 65536, (h, w, ch)).astype(np.uint16)
+    pal = rng.integers(0, 256, (16, 3)).astype(np.uint8)
+    return {
+        "gray1": (_png_file(u8(1, 1), 1, 0), 1, False),
+        "gray4": (_png_file(u8(1, 15), 4, 0), 1, False),
+        "palette4_trns": (_png_file(u8(1, 15), 4, 3, plte=pal,
+                                    trns=bytes(range(0, 160, 10))), 4,
+                          False),
+        "gray_alpha8": (_png_file(u8(2), 8, 4), 4, False),
+        "rgb16": (_png_file(u16(3), 16, 2), 3, True),
+        "rgba16": (_png_file(u16(4), 16, 6), 4, True),
+        "adam7_rgb8": (_png_file(u8(3), 8, 2, interlace=True), 3, False),
+    }
+
+
 def _ink_outside(base, comp, dets, names, H, W):
     """Pixels drawn by display_instances' boxes and captions (comp against
     the boxless composite base) outside every detection's outline band
@@ -3109,7 +3211,11 @@ def viz_phase(dev):
         bytes equal to the CPU encoder's): VIZ_SIZES at 4:2:0 / 4:2:2 /
         4:4:4 / gray, 4:2:0 with restart markers, and progressive; each
         decoded on the card and on the CPU, bit-equal; ms per image split
-        into host entropy decoding and device pixel stages;
+        into host entropy decoding and device pixel stages; then a 480x640
+        Adobe CMYK JPEG (the port's writer) and the same file as YCCK,
+        and the PNG kinds of ``_png_kinds``, read by ``imread`` on the
+        card and on the CPU at cv2's flags: equal, in cv2's dtypes and
+        shapes; ms a read;
     (b) ``samples/demo.main`` on three of those JPEGs at full
         CocoInferenceConfig width (ResNet-101, 1024^2, 81 classes),
         seeded weights: ms per image by stage (read, detect, composite,
@@ -3120,7 +3226,9 @@ def viz_phase(dev):
         detector's card detections (weights/shapes_r2_f16.h5, the 20
         committed scenes): every detection's outline and caption ink
         lies in its box's outline and caption bands, and each band has
-        ink;
+        ink; then captions beyond ASCII ("cafe" with its accent, Cyrillic
+        "zhe", the CJK "person") drawn with a JPEG ``save_path`` encoded
+        on the card: composite and bytes equal to the CPU's;
     (d) ``balloon.detect_and_color_splash(video_path=...)`` with the
         trained shapes detector on a VIZ_VIDEO MJPEG AVI written by the
         port (path "balloon_video"): the output's frame count, size and
@@ -3201,6 +3309,67 @@ def viz_phase(dev):
             f"{t_enc:.1f} ms")
     summary["jpeg"] = rows
 
+    # ---- (a') four-component JPEGs (CMYK by the port's Adobe writer, the
+    # same file as YCCK) and the PNG kinds through imread, card == CPU
+    h, w = VIZ_SIZES[0]
+    photo = _viz_photo(h, w, 100)
+    cmyk = np.concatenate([255 - photo, photo.min(-1, keepdims=True)], -1)
+    blob = jpeg.encode_cmyk(cmyk, quality=95, device=dev)
+    check(blob == jpeg.encode_cmyk(cmyk, quality=95, device="cpu"),
+          "cmyk encoder: card bytes != CPU's")
+    at = blob.index(b"Adobe") + 11                  # the transform byte
+    four = (("cmyk", blob), ("ycck", blob[:at] + b"\x02" + blob[at + 1:]))
+    for name, data in four:
+        path = os.path.join(work, f"img_{h}x{w}_{name}.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        for flags in (1, 0, -1):
+            card = imread(path, flags, device=dev)
+            check(card is not None and card.shape == ((h, w) if flags == 0
+                                                      else (h, w, 3))
+                  and np.array_equal(card, imread(path, flags, device="cpu")),
+                  f"jpeg {name} flags {flags}: card != CPU")
+        host, pix = [], []
+        for _ in range(VIZ_REPS):
+            _, t_h, t_p = jpeg.decode_timed(data, dev)
+            host.append(t_h * 1e3)
+            pix.append(t_p * 1e3)
+        rows[f"{h}x{w}_{name}"] = dict(bytes=len(data),
+                                       entropy_ms=float(np.median(host)),
+                                       pixel_ms=float(np.median(pix)))
+        log(f"[viz] jpeg {h}x{w} {name} (4 components, 4:4:4): {len(data)} "
+            f"bytes, imread card == CPU at flags 1, 0, -1; decode "
+            f"{rows[f'{h}x{w}_{name}']['entropy_ms']:.2f} ms host entropy + "
+            f"{rows[f'{h}x{w}_{name}']['pixel_ms']:.2f} ms device pixel "
+            f"stages (4:4:4 three components: "
+            f"{rows[f'{h}x{w}_444']['pixel_ms']:.2f})")
+    for name, (data, ch, deep) in _png_kinds(h, w).items():
+        path = os.path.join(work, f"{name}.png")
+        with open(path, "wb") as f:
+            f.write(data)
+        d16 = np.uint16 if deep else np.uint8
+        for flags, shape, dtype in (
+                (1, (h, w, 3), np.uint8), (0, (h, w), np.uint8),
+                (2, (h, w), d16), (-1, (h, w) + ((ch,) if ch > 1 else ()),
+                                   d16)):
+            card = imread(path, flags, device=dev)
+            got = None if card is None else (card.dtype, card.shape)
+            check(got == (dtype, shape) and np.array_equal(
+                card, imread(path, flags, device="cpu")),
+                f"png {name} flags {flags}: {got}, not {dtype} {shape}, or "
+                f"card != CPU")
+        t = []
+        for _ in range(VIZ_REPS):
+            t0 = time.perf_counter()
+            imread(path, device=dev)
+            t.append((time.perf_counter() - t0) * 1e3)
+        rows[f"{h}x{w}_png_{name}"] = dict(bytes=len(data),
+                                           read_ms=float(np.median(t)))
+    log(f"[viz] PNG kinds {h}x{w} through imread (flags 1, 0, 2, -1: cv2's "
+        f"dtypes and shapes, card == CPU), ms a read at IMREAD_COLOR: "
+        + ", ".join(f"{k[len(f'{h}x{w}_png_'):]} {v['read_ms']:.2f}"
+                    for k, v in rows.items() if "_png_" in k))
+
     calls = ShapeCalls()
     # ---- (b) the demo at full COCO width on three corpus JPEGs
     want = (f"{VIZ_SIZES[0][0]}x{VIZ_SIZES[0][1]}_420",
@@ -3228,10 +3397,11 @@ def viz_phase(dev):
     names = ("BG", "square", "circle", "triangle")
     shapes = MaskRCNN("inference", InferenceShapesConfig(), device=dev)
     shapes.load_weights(os.path.join(here, "weights", "shapes_r2_f16.h5"))
-    n_det, t_comp = 0, 0.0
+    n_det, t_comp, dets = 0, 0.0, []
     scenes = detect_scenes()
     for k, (image, *_rest) in enumerate(scenes):
         r = shapes.detect([image])[0]
+        dets.append(r)
         H, W = image.shape[:2]
         colors = [(1.0, 0.2 + 0.1 * (i % 8), 0.1) for i in range(len(
             r["rois"]))]
@@ -3250,6 +3420,32 @@ def viz_phase(dev):
               f"detections without ink {empty}")
         n_det += len(r["rois"])
     check(n_det > 0, "the trained detector found nothing to caption")
+    # captions beyond ASCII on the scene with the most detections: the
+    # composite (its JPEG encoded on the card) equals the CPU's, and the
+    # caption ink stays in the bands
+    uni = ("BG", "caf\u00e9", "\u0436", "\u4eba")
+    k = int(np.argmax([len(r["rois"]) for r in dets]))
+    image, r = scenes[k][0], dets[k]
+    H, W = image.shape[:2]
+    colors = [(0.1, 0.9, 0.3)] * len(r["rois"])
+    outs = []
+    for where in (dev, "cpu"):
+        jpg = os.path.join(work, f"uni_{where}.jpg")
+        outs.append((display_instances(
+            image, r["rois"], r["masks"], r["class_ids"], uni, r["scores"],
+            colors=colors, show=False, save_path=jpg, device=where),
+            open(jpg, "rb").read()))
+    base = display_instances(image, r["rois"], r["masks"], r["class_ids"],
+                             uni, r["scores"], colors=colors, show=False,
+                             show_bbox=False, device="cpu")
+    stray, empty = _ink_outside(base, outs[0][0], r, uni, H, W)
+    check(np.array_equal(outs[0][0], outs[1][0])
+          and outs[0][1] == outs[1][1] and stray == 0 and not empty,
+          f"non-ASCII captions: card != CPU, or {stray} stray ink pixels, "
+          f"detections without ink {empty}")
+    log(f"[viz] captions {uni[1:]} on scene {k} ({len(r['rois'])} "
+        f"detections): composite and its card-encoded JPEG equal the CPU's, "
+        f"ink inside the bands")
     summary["captions"] = dict(detections=n_det, ms_per_image=1e3 * t_comp
                                / len(scenes))
     log(f"[viz] captions: {n_det} detections on {len(scenes)} scenes, every "
@@ -3411,6 +3607,7 @@ def main() -> int:
     on_path = {"step": ("fuse", "nms", "roi_align"),
                "paired_chunk": ("fuse_pair", "nms", "roi_align"),
                "detect": ("nms", "roi_align"),
+               "stage1_jpeg": ("nms", "roi_align"),
                "mask_process": ("nms", "roi_align"),
                "fusion_demo": ("fuse",),
                "live_device": ("fuse", "nms", "roi_align"),

@@ -6,7 +6,7 @@
 //
 // Decoding follows libjpeg(-turbo): baseline and extended-sequential
 // 8-bit Huffman files and progressive ones (spectral selection and
-// successive approximation, jdphuff.c), restart markers, one to four
+// successive approximation, jdphuff.c), restart markers, one, three or four
 // components with sampling factors 1..4; a scan that names a Huffman
 // table the file never defined gets the Annex K table (Motion-JPEG
 // frames carry none). Encoding follows jchuff.c / jcphuff.c / jcmarker.c
@@ -248,9 +248,9 @@ struct Decoder {
     height = u16(p + 1);
     width = u16(p + 3);
     ncomp = d[p + 5];
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       return fail(std::to_string(ncomp) +
-                  " components (one or three are read)");
+                  " components (one, three or four are read)");
     if (len < 6 + 3 * ncomp) return fail("short SOF segment");
     if (width == 0 || height == 0)
       return fail("zero image size (DNL is not supported)");
@@ -707,7 +707,7 @@ struct EncComp {
 struct Encoder {
   Writer w;
   int ncomp, width, height, hmax, vmax, mcux, mcuy, restart_interval;
-  EncComp comp[3];
+  EncComp comp[4];
   // progressive state (jcphuff.c)
   int eobrun = 0, be_count = 0;
   std::vector<char> bit_buffer;
@@ -866,7 +866,8 @@ int jpeg_decode(const uint8_t* data, int64_t n, int16_t* coef,
 }
 
 // Encode quantised coefficients (natural order, the [bh, bw, 64] layout
-// above, blocks padded to whole MCUs) into a JFIF file. comps (int32
+// above, blocks padded to whole MCUs) into a JFIF file (one or three
+// components) or an Adobe CMYK file (four, sequential only). comps (int32
 // [ncomp, 4]): id, h, v, quantisation table index (0 or 1); qt [2, 64]
 // natural order. progressive: 0 sequential (Annex K tables), 1
 // jpeg_simple_progression with optimal tables. Returns the byte count
@@ -881,8 +882,9 @@ int64_t jpeg_encode(const int16_t* coef, int width, int height, int ncomp,
   e.height = height;
   e.restart_interval = restart_interval;
   e.hmax = e.vmax = 1;
-  if (ncomp != 1 && ncomp != 3) {
-    g_error = "one or three components are written";
+  if (ncomp != 1 && ncomp != 3 && !(ncomp == 4 && !progressive)) {
+    g_error = "one or three components are written (four in a sequential "
+              "file)";
     return -1;
   }
   for (int c = 0; c < ncomp; ++c) {
@@ -914,7 +916,14 @@ int64_t jpeg_encode(const int16_t* coef, int width, int height, int ncomp,
   w.byte(0xD8);
   const uint8_t app0[] = {0xFF, 0xE0, 0x00, 0x10, 'J', 'F', 'I', 'F', 0,
                           1,    1,    0,    0,    1,   0,   1,   0,   0};
-  for (uint8_t b : app0) w.byte(b);
+  // four components: CMYK with an Adobe APP14 marker instead (transform 0,
+  // jcmarker.c emit_adobe_app14), as jpeg_set_colorspace(JCS_CMYK) writes
+  const uint8_t app14[] = {0xFF, 0xEE, 0x00, 0x0E, 'A', 'd', 'o', 'b',
+                           'e',  0,    100,  0,    0,   0,   0,   0};
+  if (ncomp == 4)
+    for (uint8_t b : app14) w.byte(b);
+  else
+    for (uint8_t b : app0) w.byte(b);
   bool sent_qt[4] = {false, false, false, false};
   for (int c = 0; c < ncomp; ++c) {
     int t = e.comp[c].tq;
@@ -980,7 +989,7 @@ int64_t jpeg_encode(const int16_t* coef, int width, int height, int ncomp,
       write_dht(w, ac[t], t, true);
     }
     dri();
-    int ci[3] = {0, 1, 2};
+    int ci[4] = {0, 1, 2, 3};
     if (ncomp == 1) {
       // a non-interleaved scan covers the component's own blocks
       sos(1, ci, 0, 63, 0, 0);

@@ -1,27 +1,31 @@
 """``imread`` / ``imdecode`` / ``imwrite`` without cv2: PNG and JPEG.
 
-The JAX package reads photos with ``cv2.imread`` (COCO and balloon
-images, the demo, TUM frames) and writes results with ``cv2.imwrite``.
-These are those calls for the two formats the package meets, with
-cv2's conventions:
+The JAX package reads photos, masks and depth maps with ``cv2.imread``
+(COCO and balloon images, the demo, TUM frames, nucleus masks) and
+writes results with ``cv2.imwrite``. These are those calls for the two
+formats the package meets, equal to OpenCV 5's in dtype, shape and every
+value:
 
 * the format is chosen by the file's magic bytes on read (PNG through
   data/png.py, JPEG through data/jpeg.py) and by the extension on write;
-* ``IMREAD_COLOR`` (the default) gives u8 [H, W, 3] BGR, a gray file
-  replicated to three channels; ``IMREAD_GRAYSCALE`` gives [H, W] (a
-  colour JPEG's luma, as libjpeg outputs it), ``IMREAD_ANYDEPTH`` the
-  same with 16-bit PNGs kept u16; ``IMREAD_UNCHANGED`` keeps a gray file
-  [H, W] and a colour one BGR;
-* a JPEG's EXIF orientation is applied as OpenCV 5 applies it (all
-  eight cases) unless the flags hold ``IMREAD_IGNORE_ORIENTATION`` or
-  are ``IMREAD_UNCHANGED``;
+* the flags as ``imread_`` applies them to the decoder's type (its
+  channels at ``IMREAD_UNCHANGED``: a PNG's alpha or tRNS gives 4, a
+  four-component JPEG 3): any flags but -1 drop alpha; without
+  ``IMREAD_ANYDEPTH`` 16-bit samples are cut to 8; ``IMREAD_COLOR`` (the
+  default), or ``IMREAD_ANYCOLOR`` on a colour file, gives [H, W, 3] BGR,
+  anything else [H, W] gray (a PNG's colour through libpng's
+  ``rgb_to_gray``, a JPEG's as libjpeg outputs it, a CMYK one through
+  OpenCV's conversion);
+* the EXIF orientation of a JPEG's APP1 or a PNG's eXIf chunk is applied
+  as OpenCV 5 applies it (all eight cases) unless the flags hold
+  ``IMREAD_IGNORE_ORIENTATION`` or are ``IMREAD_UNCHANGED``;
 * an unreadable file (missing, empty, not PNG or JPEG, damaged) gives
   ``None`` and a warning on stderr, as ``cv2.imread`` does.
 
 A JPEG's pixel stages run in torch on ``device`` (the card by default;
-``device="cpu"`` for the plain CPU run); the result is a numpy array.
-``image_size`` reads the size from the PNG IHDR or the JPEG SOF header,
-after the orientation, without decoding.
+``device="cpu"`` for the plain CPU run); a PNG decodes on the host. The
+result is a numpy array. ``image_size`` reads the size from the PNG
+IHDR or the JPEG SOF header, after the orientation, without decoding.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ IMREAD_UNCHANGED = -1
 IMREAD_GRAYSCALE = 0
 IMREAD_COLOR = 1
 IMREAD_ANYDEPTH = 2
+IMREAD_ANYCOLOR = 4
 IMREAD_IGNORE_ORIENTATION = 128
 
 JPEG_SOI = b"\xff\xd8\xff"
@@ -67,26 +72,36 @@ def orient(img: np.ndarray, o: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
-def _mode(flags: int) -> int:
-    """The read mode without the orientation bit (-1 stays -1)."""
-    return IMREAD_UNCHANGED if flags < 0 else flags & ~IMREAD_IGNORE_ORIENTATION
+def _shape(flags: int, channels: int) -> tuple[int, bool]:
+    """imread_'s output for a decoder of ``channels`` (its type at
+    IMREAD_UNCHANGED): (channels, keep 16 bits). Any flags but -1 drop
+    alpha; IMREAD_ANYDEPTH keeps the depth; IMREAD_COLOR, or
+    IMREAD_ANYCOLOR on a colour file, gives three channels, else one."""
+    if flags == IMREAD_UNCHANGED:
+        return channels, True
+    color = flags & IMREAD_COLOR or (flags & IMREAD_ANYCOLOR
+                                     and channels > 1)
+    return (3 if color else 1), bool(flags & IMREAD_ANYDEPTH)
 
 
-def _png_flags(img: np.ndarray, flags: int) -> np.ndarray:
-    mode = _mode(flags)
-    if mode == IMREAD_UNCHANGED:
-        return img
-    if mode in (IMREAD_GRAYSCALE, IMREAD_ANYDEPTH):
-        if img.ndim == 3:
-            raise png.PNGError("a colour PNG read as gray is not supported")
-        if mode == IMREAD_ANYDEPTH or img.dtype == np.uint8:
-            return img
-        return (img >> 8).astype(np.uint8)
-    if img.ndim == 2:
-        if img.dtype != np.uint8:
-            img = (img >> 8).astype(np.uint8)
-        img = np.repeat(img[:, :, None], 3, axis=2)
+def _oriented(img: np.ndarray, flags: int, o: int) -> np.ndarray:
+    if flags != IMREAD_UNCHANGED and not flags & IMREAD_IGNORE_ORIENTATION:
+        img = orient(img, o)
     return img
+
+
+def _png(data: bytes, flags: int) -> np.ndarray:
+    img = png.decode(data)
+    out = png.convert(img, *_shape(flags, img.cv_channels))
+    return _oriented(out, flags, jpeg.tiff_orientation(img.exif))
+
+
+def _jpeg(data: bytes, flags: int, device) -> np.ndarray:
+    channels = _shape(flags, 1 if jpeg.info(data)["ncomp"] == 1 else 3)[0]
+    img = jpeg.decode(data, device, gray=channels == 1).cpu().numpy()
+    if img.ndim == 2 and channels == 3:
+        img = np.repeat(img[:, :, None], 3, axis=2)
+    return _oriented(img, flags, jpeg.exif_orientation(data))
 
 
 def imdecode(data, flags: int = IMREAD_COLOR, device="cuda"):
@@ -95,17 +110,9 @@ def imdecode(data, flags: int = IMREAD_COLOR, device="cuda"):
     data = bytes(data)
     try:
         if data[:8] == png.SIGNATURE:
-            return _png_flags(png.decode_png(data), flags)
+            return _png(data, flags)
         if data[:3] == JPEG_SOI:
-            mode = _mode(flags)
-            gray_out = mode in (IMREAD_GRAYSCALE, IMREAD_ANYDEPTH)
-            img = jpeg.decode(data, device, gray=gray_out).cpu().numpy()
-            if img.ndim == 2 and mode == IMREAD_COLOR:
-                img = np.repeat(img[:, :, None], 3, axis=2)
-            if mode != IMREAD_UNCHANGED and \
-                    not flags & IMREAD_IGNORE_ORIENTATION:
-                img = orient(img, jpeg.exif_orientation(data))
-            return img
+            return _jpeg(data, flags, device)
     except (jpeg.JPEGError, png.PNGError) as e:
         _warn(f"cannot decode the image: {e}")
         return None
@@ -154,6 +161,11 @@ def image_size(path) -> tuple[int, int]:
         if data[12:16] != b"IHDR":
             raise png.PNGError(f"{path}: no IHDR chunk")
         w, h = struct.unpack(">II", data[16:24])
+        for kind, body in png.chunks(data):      # eXIf comes before IDAT
+            if kind == b"IDAT":
+                break
+            if kind == b"eXIf" and jpeg.tiff_orientation(body) >= 5:
+                h, w = w, h
         return int(h), int(w)
     if data[:3] == JPEG_SOI:
         hdr = jpeg.info(data)

@@ -28,10 +28,18 @@ CPU agree to the bit:
   tables (or per-scan optimal ones for progressive files), as cv2 writes
   at its defaults (quality 95, 4:2:0, baseline).
 
+Four-component files are read too, as OpenCV reads them: libjpeg outputs
+CMYK (Adobe transform 0, or no Adobe marker) or converts YCCK (any other
+transform) to CMYK, and OpenCV's ``icvCvt_CMYK2BGR`` / ``CMYK2Gray``
+turn Adobe's inverted CMYK into BGR or gray; a three-component RGB file
+read as gray goes through ``rgb_gray_convert``. All of it runs on the
+device.
+
 ``decode`` returns a u8 torch tensor on the device, [H, W, 3] BGR or
 [H, W] gray; ``decode_timed`` also returns the host and device seconds.
-``encode`` returns the file's bytes. data/image_io.py builds ``imread`` /
-``imwrite`` on these.
+``encode`` returns the file's bytes; ``encode_cmyk`` writes a baseline
+Adobe CMYK file, which cv2 cannot write. data/image_io.py builds
+``imread`` / ``imwrite`` on these.
 """
 
 from __future__ import annotations
@@ -125,9 +133,13 @@ def info(data: bytes) -> dict:
 
 
 def _colorspace(n, adobe, jfif, comps) -> str:
-    """jdapimin.c default_decompress_parms for one or three components."""
+    """jdapimin.c default_decompress_parms for one, three or four
+    components: four are CMYK without an Adobe marker or at its transform
+    0, YCCK at any other."""
     if n == 1:
         return "gray"
+    if n == 4:
+        return "cmyk" if adobe <= 0 else "ycck"
     if jfif:
         return "ycc"
     if adobe >= 0:
@@ -273,14 +285,50 @@ def ycc_to_bgr(y, cb, cr) -> torch.Tensor:
     return torch.stack([b, g, r], -1).clamp_(0, 255).to(torch.uint8)
 
 
+def rgb_to_gray(r, g, b) -> torch.Tensor:
+    """jdcolor.c rgb_gray_convert (its tables as formulas)."""
+    r, g, b = (t.to(torch.int32) for t in (r, g, b))
+    return ((19595 * r + 38470 * g + 7471 * b + 32768) >> 16).to(
+        torch.uint8)
+
+
+def ycck_to_cmyk(y, cb, cr, k):
+    """jdcolor.c ycck_cmyk_convert: C, M, Y = 255 - the YCbCr -> RGB of the
+    first three, K as it is."""
+    bgr = ycc_to_bgr(y, cb, cr)
+    return 255 - bgr[..., 2], 255 - bgr[..., 1], 255 - bgr[..., 0], k
+
+
+def _cmy(c, m, y, k):
+    """OpenCV's utils.cpp on Adobe's inverted CMYK: each of C, M, Y becomes
+    k - ((255 - v) * k >> 8), read as R, G, B."""
+    k = k.to(torch.int32)
+    return [k - (((255 - v.to(torch.int32)) * k) >> 8) for v in (c, m, y)]
+
+
+def cmyk_to_bgr(c, m, y, k) -> torch.Tensor:
+    """icvCvt_CMYK2BGR_8u_C4C3R, as cv2.imread applies it."""
+    r, g, b = _cmy(c, m, y, k)
+    return torch.stack([b, g, r], -1).to(torch.uint8)
+
+
+def cmyk_to_gray(c, m, y, k) -> torch.Tensor:
+    """icvCvt_CMYK2Gray_8u_C4C1R: (1868 B + 9617 G + 4899 R + 8192) >> 14
+    of cmyk_to_bgr's channels."""
+    r, g, b = _cmy(c, m, y, k)
+    return ((b * 1868 + g * 9617 + r * 4899 + 8192) >> 14).to(torch.uint8)
+
+
 def pixels(hdr: dict, coef: list, qt, device, gray: bool = False):
     """The device stages: coefficients -> u8 [H, W, 3] BGR (or [H, W]
-    for a gray file, or with gray=True the luma of a colour one)."""
+    for a gray file, or with gray=True the gray libjpeg (YCbCr, RGB) or
+    OpenCV (CMYK, YCCK) makes of a colour one)."""
     H, W = hdr["height"], hdr["width"]
     hmax, vmax = hdr["hmax"], hdr["vmax"]
+    space = hdr["colorspace"]
     planes = []
     for ci, (c, k) in enumerate(zip(hdr["comps"], coef)):
-        if gray and ci > 0:
+        if gray and ci > 0 and space == "ycc":
             break
         t = torch.from_numpy(np.ascontiguousarray(k)).to(device)
         q = torch.as_tensor(qt[ci], device=device)
@@ -291,9 +339,13 @@ def pixels(hdr: dict, coef: list, qt, device, gray: bool = False):
         planes.append(upsample(p, hmax // c["h"], vmax // c["v"])[:H, :W])
     if len(planes) == 1:
         return planes[0]
-    if hdr["colorspace"] == "rgb":
-        return torch.stack(planes[::-1], -1)
-    return ycc_to_bgr(*planes)
+    if space == "rgb":
+        return rgb_to_gray(*planes) if gray else torch.stack(planes[::-1], -1)
+    if space == "ycc":
+        return ycc_to_bgr(*planes)
+    if space == "ycck":
+        planes = ycck_to_cmyk(*planes)
+    return cmyk_to_gray(*planes) if gray else cmyk_to_bgr(*planes)
 
 
 def decode_timed(data: bytes, device="cuda", gray: bool = False):
@@ -458,26 +510,53 @@ def encode(img, quality: int = 95, sampling: str = "420",
     """cv2.imencode(".jpg", img) at these settings: img u8 [H, W, 3] BGR
     or [H, W] gray (numpy or torch). The pixel stages run on the device;
     the bytes equal libjpeg-turbo's for baseline files."""
+    x = _u8_image(img, device, (2, 3), 3)
+    if x.ndim == 2:
+        return _encode_planes([x.to(torch.int32)], [(1, 1, 1, 0)], quality,
+                              restart_interval, progressive)
+    if sampling not in SAMPLING:
+        raise JPEGError(f"sampling {sampling!r}: one of {sorted(SAMPLING)}")
+    lh, lv = SAMPLING[sampling]
+    return _encode_planes(list(rgb_to_ycc(x)),
+                          [(1, lh, lv, 0), (2, 1, 1, 1), (3, 1, 1, 1)],
+                          quality, restart_interval, progressive)
+
+
+def encode_cmyk(cmyk, quality: int = 95, device="cuda") -> bytes:
+    """A baseline Adobe CMYK JPEG (APP14 transform 0, four 1 x 1
+    components, the luma quantisation table) of u8 [H, W, 4] samples
+    stored as given: in Adobe's inverted convention when the caller
+    follows it, as PIL writes CMYK. cv2 writes no such file, but reads
+    one; ``imread`` gives the same BGR."""
+    x = _u8_image(cmyk, device, (3,), 4)
+    return _encode_planes([x[..., c].to(torch.int32) for c in range(4)],
+                          [(ord(k), 1, 1, 0) for k in "CMYK"], quality, 0,
+                          False)
+
+
+def _u8_image(img, device, ndims, channels) -> torch.Tensor:
     dev = resolve_device(device)
     x = torch.as_tensor(np.asarray(img) if not isinstance(
         img, torch.Tensor) else img).to(dev)
-    if x.dtype != torch.uint8 or x.ndim not in (2, 3) or (
-            x.ndim == 3 and x.shape[2] != 3):
-        raise JPEGError(f"encode takes u8 [H, W] or [H, W, 3], got "
-                        f"{x.dtype} {tuple(x.shape)}")
+    if x.dtype != torch.uint8 or x.ndim not in ndims or (
+            x.ndim == 3 and x.shape[2] != channels):
+        shapes = " or ".join(["[H, W]"] * (2 in ndims)
+                             + [f"[H, W, {channels}]"])
+        raise JPEGError(f"encode takes u8 {shapes}, got {x.dtype} "
+                        f"{tuple(x.shape)}")
     H, W = x.shape[:2]
     if not (0 < H < 65536 and 0 < W < 65536):
         raise JPEGError(f"image size {W}x{H} out of JPEG's range")
+    return x
+
+
+def _encode_planes(planes, comps, quality, restart_interval,
+                   progressive) -> bytes:
+    """The component planes (int32 [H, W] each, on the device) with comps
+    [(id, h, v, table)] -> the file's bytes: downsampling, forward DCT and
+    quantisation on the device, the entropy coding in csrc/jpeg.cpp."""
+    H, W = planes[0].shape
     qt = quality_tables(quality)
-    if x.ndim == 2:
-        planes, comps = [x.to(torch.int32)], [(1, 1, 1, 0)]
-    else:
-        if sampling not in SAMPLING:
-            raise JPEGError(f"sampling {sampling!r}: one of "
-                            f"{sorted(SAMPLING)}")
-        lh, lv = SAMPLING[sampling]
-        planes = list(rgb_to_ycc(x))
-        comps = [(1, lh, lv, 0), (2, 1, 1, 1), (3, 1, 1, 1)]
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
     mcux, mcuy = -(-W // (8 * hmax)), -(-H // (8 * vmax))
@@ -523,12 +602,14 @@ def exif_orientation(data: bytes) -> int:
         ln = struct.unpack_from(">H", data, pos + 2)[0]
         seg = data[pos + 4:pos + 2 + ln]
         if m == 0xE1 and seg[:6] == b"Exif\0\0":
-            return _tiff_orientation(seg[6:])
+            return tiff_orientation(seg[6:])
         pos += 2 + ln
     return 1
 
 
-def _tiff_orientation(t: bytes) -> int:
+def tiff_orientation(t: bytes) -> int:
+    """The orientation tag (1-8) of TIFF bytes (a JPEG's APP1 after
+    "Exif\\0\\0", a PNG's eXIf chunk), 1 without one."""
     if len(t) < 8 or t[:2] not in (b"II", b"MM"):
         return 1
     e = "<" if t[:2] == b"II" else ">"

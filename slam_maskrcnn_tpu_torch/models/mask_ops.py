@@ -10,19 +10,22 @@ id, 0 = background, ``dmask.py:47-59``):
   numpy call breaks ties the same way;
 * ``label_masks_device`` is the same label image computed on the device,
   and ``mask_detect_device`` runs detect -> label there;
-* ``batch_mask_process`` is the ``mask_process.py`` batch driver, writing
-  the label PNGs with data/png.py.
+* ``batch_mask_process`` is the ``mask_process.py`` batch driver: it
+  reads PNG or JPEG frames with data/image_io.py (``cv2.imread``'s
+  semantics) and writes the label PNGs with data/png.py.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 
 import numpy as np
 import torch
 
-from slam_maskrcnn_tpu_torch.data.png import read_png, write_png
+from slam_maskrcnn_tpu_torch.data.image_io import IMREAD_ANYDEPTH, imread
+from slam_maskrcnn_tpu_torch.data.png import write_png
 
 
 def depth_filter(depth_image: np.ndarray, masks: np.ndarray,
@@ -154,26 +157,36 @@ def mask_detect_device(model, rgb_image, min_area: int = 2000) -> np.ndarray:
 
 def batch_mask_process(model, rgb_dir: str, mask_dir: str,
                        depth_dir: str | None = None,
-                       verbose: bool = True) -> int:
+                       verbose: bool = True, timer=None) -> int:
     """The ``mask_process.py`` batch driver (``mask_process.py:94-105``):
-    sorted rgb/*.png -> mask_detect -> mask/<same name>.png (u8 labels).
-    Returns the number of masks written."""
+    sorted rgb/*.png (or, without any, rgb/*.jpg) read with ``imread`` on
+    the model's device, the depth of the same name with
+    ``IMREAD_ANYDEPTH``, -> mask_detect -> mask/<same stem>.png (u8
+    labels). A ``utils.profiling.StageTimer`` as ``timer`` times the
+    stages "read", "detect" and "write" of every frame. Returns the
+    number of masks written."""
     os.makedirs(mask_dir, exist_ok=True)
-    files = sorted(glob.glob(os.path.join(rgb_dir, "*.png")))
-    if not files and glob.glob(os.path.join(rgb_dir, "*.jpg")):
-        raise ValueError(f"{rgb_dir} holds JPEG frames; the port reads PNG "
-                         "only (data/png.py)")
+    files = sorted(glob.glob(os.path.join(rgb_dir, "*.png"))) or \
+        sorted(glob.glob(os.path.join(rgb_dir, "*.jpg")))
+    stage = timer if timer is not None else (
+        lambda name: contextlib.nullcontext())
     for k, f in enumerate(files):
-        rgb = np.ascontiguousarray(read_png(f)[:, :, ::-1])  # BGR -> RGB
-        depth = None
-        if depth_dir is not None:
-            dfile = os.path.join(depth_dir, os.path.basename(f))
-            if os.path.exists(dfile):
-                depth = read_png(dfile)
-        cls = mask_detect(model, rgb, depth)
+        with stage("read"):
+            bgr = imread(f, device=model.device)
+            if bgr is None:
+                raise FileNotFoundError(f)
+            rgb = np.ascontiguousarray(bgr[:, :, ::-1])  # BGR -> RGB
+            depth = None
+            if depth_dir is not None:
+                dfile = os.path.join(depth_dir, os.path.basename(f))
+                if os.path.exists(dfile):
+                    depth = imread(dfile, IMREAD_ANYDEPTH)
+        with stage("detect"):
+            cls = mask_detect(model, rgb, depth)
         out = os.path.join(mask_dir, os.path.splitext(os.path.basename(f))[0]
                            + ".png")
-        write_png(out, cls)
+        with stage("write"):
+            write_png(out, cls)
         if verbose:
             print(f"[{k + 1}/{len(files)}] {out} ({cls.max()} instances)")
     return len(files)

@@ -9,7 +9,8 @@ writing submit.csv (:359-410).
 
 Note this RLE is the *Kaggle* convention (column-major, 1-indexed,
 value-sorted), distinct from COCO RLE. The mask PNGs are read by
-data/png.py; detection runs on the card (``--device cpu`` for the plain
+data/image_io.py at ``IMREAD_GRAYSCALE``, as cv2 reads them (libpng's
+colour to gray); detection runs on the card (``--device cpu`` for the plain
 versions).
 
     python -m slam_maskrcnn_tpu_torch.samples.nucleus detect \
@@ -23,9 +24,8 @@ import os
 import numpy as np
 
 from slam_maskrcnn_tpu_torch.data.dataset import Dataset
-from slam_maskrcnn_tpu_torch.data.png import read_png
+from slam_maskrcnn_tpu_torch.data.image_io import IMREAD_GRAYSCALE, imread
 from slam_maskrcnn_tpu_torch.models.config import Config
-from slam_maskrcnn_tpu_torch.ops.blur import rgb_to_gray
 
 
 class NucleusConfig(Config):
@@ -79,9 +79,7 @@ class NucleusDataset(Dataset):
         masks = []
         for f in sorted(os.listdir(mask_dir)):
             if f.endswith(".png"):
-                m = read_png(os.path.join(mask_dir, f))
-                if m.ndim == 3:     # IMREAD_GRAYSCALE of a color PNG
-                    m = rgb_to_gray(np.ascontiguousarray(m[:, :, ::-1]))
+                m = imread(os.path.join(mask_dir, f), IMREAD_GRAYSCALE)
                 masks.append(m > 0)
         if not masks:
             return np.empty((0, 0, 0), bool), np.empty((0,), np.int32)

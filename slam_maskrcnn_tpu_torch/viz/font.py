@@ -1,25 +1,32 @@
 """Caption text as OpenCV 5's ``putText`` draws it, without cv2.
 
 In OpenCV 5, ``cv2.putText(img, text, org, FONT_HERSHEY_SIMPLEX, 0.4, c,
-1)`` no longer strokes the Hershey font: it draws the embedded TrueType
-font Rubik (weight 400) at size 11. Each glyph is rasterised with
-coverage antialiasing and no subpixel shift, the pen advances a whole
-number of pixels and there is no kerning, so each character is one
-coverage bitmap, an offset from the pen and an advance.
-``fonts/caption_glyphs.npz`` holds those for the printable ASCII
-characters, rendered from OpenCV 5.0.0 by ``tests/make_glyph_table.py``
-(see ``fonts/README``). This module is that call for the one (font,
-scale, thickness) the package uses; any other raises.
+1)`` no longer strokes the Hershey font: it draws its embedded TrueType
+fonts (Rubik, weight 400, and WenQuanYi Micro Hei for the scripts Rubik
+lacks) at size 11. Each glyph is rasterised with coverage antialiasing
+and no subpixel shift, the pen advances a whole number of pixels and
+there is no kerning, so each code point is one coverage bitmap, an
+offset from the pen and an advance. ``fonts/caption_glyphs.npz`` holds
+those for every code point OpenCV 5.0.0 draws a glyph for (34,908 of the
+BMP, 6 astral), plus the "?" box ("tofu") it draws for every other code
+point, controls included, rendered by
+``tests/make_glyph_table.py`` (see ``fonts/README``). This module is that
+call for the one (font, scale, thickness) the package uses; any other
+raises.
 
 ``put_text`` blends each glyph into the image in turn,
 ``dst = (dst * (255 - a) + color * a + 127) // 255`` per channel, in
-place into a u8 [H, W, C] image, and returns it.
+place into a u8 [H, W, C] image, and returns it. As in putText, "\\0"
+ends the text and "\\n" starts a new line ``line_step`` pixels down at
+the origin's x, except before the first character (leading "\\n" are
+skipped). A lone surrogate, which cv2 cannot encode, raises.
 """
 
 from __future__ import annotations
 
 import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 
@@ -30,20 +37,45 @@ GLYPHS_PATH = os.path.join(os.path.dirname(__file__), "fonts",
 CAPTION_CALL = (FONT_HERSHEY_SIMPLEX, 0.4, 1)
 
 
+class GlyphTable(NamedTuple):
+    """codepoint [n] ascending after the tofu's -1 at index 0; alpha the
+    bitmaps joined, glyph i at start[i] with shape[i] (h, w); offset [n, 2]
+    (x, y of the bitmap's top left from the pen on the baseline); advance
+    [n] in pixels; line_step the baseline step of "\\n"."""
+    codepoint: np.ndarray
+    alpha: np.ndarray
+    start: np.ndarray
+    shape: np.ndarray
+    offset: np.ndarray
+    advance: np.ndarray
+    line_step: int
+
+
 @functools.lru_cache(maxsize=None)
-def glyphs() -> dict:
-    """char -> (alpha u8 [h, w], x offset, y offset, advance in pixels);
-    the offsets place the bitmap's top left from the pen on the
-    baseline."""
+def table() -> GlyphTable:
     t = np.load(GLYPHS_PATH)
-    out, pos = {}, 0
-    for ch, (h, w), (x, y), adv in zip(bytes(t["chars"]).decode("ascii"),
-                                       t["shape"], t["offset"],
-                                       t["advance"]):
-        alpha = t["alpha"][pos:pos + h * w].reshape(h, w)
-        pos += h * w
-        out[ch] = (alpha, int(x), int(y), int(adv))
-    return out
+    shape = t["shape"].astype(np.int64)
+    start = np.concatenate([[0], np.cumsum(shape[:, 0] * shape[:, 1])])
+    return GlyphTable(t["codepoint"], t["alpha"], start, shape,
+                      t["offset"].astype(np.int64),
+                      t["advance"].astype(np.int64), int(t["line_step"]))
+
+
+def glyph(ch: str):
+    """(alpha u8 [h, w], x offset, y offset, advance) that putText draws
+    for the character ch: its own glyph, or the tofu."""
+    t = table()
+    cp = ord(ch)
+    if 0xD800 <= cp < 0xE000:
+        raise ValueError(f"put_text: a lone surrogate U+{cp:04X} is not "
+                         f"text (cv2 cannot encode it)")
+    i = int(np.searchsorted(t.codepoint[1:], cp)) + 1
+    if i >= len(t.codepoint) or t.codepoint[i] != cp:
+        i = 0
+    h, w = t.shape[i]
+    alpha = t.alpha[t.start[i]:t.start[i] + h * w].reshape(h, w)
+    return alpha, int(t.offset[i, 0]), int(t.offset[i, 1]), \
+        int(t.advance[i])
 
 
 def put_text(img: np.ndarray, text: str, org, font_face: int,
@@ -61,16 +93,16 @@ def put_text(img: np.ndarray, text: str, org, font_face: int,
     if img.dtype != np.uint8 or img.ndim != 3:
         raise ValueError(f"put_text draws on u8 [H, W, C] images, got "
                          f"{img.dtype} {img.shape}")
-    table = glyphs()
-    missing = sorted(set(text) - set(table))
-    if missing:
-        raise ValueError(f"put_text draws printable ASCII only; got "
-                         f"{missing}")
+    text = text.split("\0", 1)[0].lstrip("\n")
+    glyphs = [None if ch == "\n" else glyph(ch) for ch in text]
     H, W = img.shape[:2]
     col = np.asarray([int(c) for c in color][:img.shape[2]], np.int32)
     x, base = int(org[0]), int(org[1])
-    for ch in text:
-        alpha, ix0, iy0, adv = table[ch]
+    for g in glyphs:
+        if g is None:
+            x, base = int(org[0]), base + table().line_step
+            continue
+        alpha, ix0, iy0, adv = g
         h, w = alpha.shape
         gx, gy = x + ix0, base + iy0
         x0, y0 = max(gx, 0), max(gy, 0)

@@ -1,6 +1,7 @@
 """The port's PNG codec (slam_maskrcnn_tpu_torch/data/png.py) against cv2:
 u8 gray, u8 BGR and u16 gray at odd sizes, written by one and read by the
-other; every row filter; and the layouts it refuses."""
+other; every row filter; and damaged files, refused where cv2 refuses
+them."""
 
 import struct
 import zlib
@@ -9,6 +10,7 @@ import cv2
 import numpy as np
 import pytest
 
+from slam_maskrcnn_tpu_torch.data import image_io
 from slam_maskrcnn_tpu_torch.data.png import (PNGError, chunk, decode_png,
                                               encode_png, read_png,
                                               write_png)
@@ -145,14 +147,20 @@ def _header(png: bytes, **kw) -> bytes:
 
 @pytest.mark.parametrize("what,kw,match", [
     ("interlaced", dict(interlace=1), "interlaced"),
-    ("palette", dict(ctype=3), "palette"),
-    ("bit depth 4", dict(depth=4), "bit depth 4"),
-    ("gray + alpha", dict(ctype=4), "color type 4"),
+    ("palette", dict(ctype=3), "PLTE"),
+    ("bit depth 4", dict(depth=4), "filter type"),
+    ("gray + alpha", dict(ctype=4), "image data"),
 ])
 def test_unsupported_layouts_raise(what, kw, match):
+    """A gray image's IHDR rewritten to another layout no longer matches
+    its data (or lacks its PLTE): a damaged file, which the port refuses
+    where cv2.imdecode gives None."""
     png = _header(encode_png(_image("gray8", (8, 8), 7)), **kw)
     with pytest.raises(PNGError, match=match):
         decode_png(png)
+    assert cv2.imdecode(np.frombuffer(png, np.uint8),
+                        cv2.IMREAD_UNCHANGED) is None
+    assert image_io.imdecode(png, image_io.IMREAD_UNCHANGED) is None
 
 
 def test_damaged_or_unwritable_raise(tmp_path):

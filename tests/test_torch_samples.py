@@ -132,6 +132,36 @@ def test_nucleus_tree_dataset_and_submit_match_jax(tmp_path, seed):
     assert text.count("\n") == 3 * 5
 
 
+def test_nucleus_colour_mask_pngs_match_jax(tmp_path):
+    """Mask PNGs saved in colour: both read them at IMREAD_GRAYSCALE
+    (libpng's colour to gray, which truncates), so every one of the 512
+    near-black colours (channels 0..7) keeps or loses its pixel as in the
+    JAX load_mask; cvtColor's rounding differs on 18 of them."""
+    root = tmp_path / "stage1_train" / "nuc0"
+    os.makedirs(root / "images")
+    os.makedirs(root / "masks")
+    cv2.imwrite(str(root / "images" / "nuc0.png"),
+                np.full((16, 32, 3), 90, np.uint8))
+    c = np.arange(512)
+    near_black = np.stack([c % 8, c // 8 % 8, c // 64], -1).reshape(
+        16, 32, 3).astype(np.uint8)
+    rng = np.random.default_rng(4)
+    for j, img in enumerate((near_black, near_black[::-1, ::-1],
+                             rng.integers(0, 256, (16, 32, 3)))):
+        cv2.imwrite(str(root / "masks" / f"m{j}.png"), img.astype(np.uint8))
+    jd, td = jnuc.NucleusDataset(), tnuc.NucleusDataset()
+    jd.load_nucleus(str(tmp_path), "stage1_train")
+    td.load_nucleus(str(tmp_path), "stage1_train")
+    jd.prepare()
+    td.prepare()
+    (tm, tc), (jm, jc) = td.load_mask(0), jd.load_mask(0)
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_array_equal(tc, jc)
+    rounded = cv2.cvtColor(near_black,
+                           cv2.COLOR_BGR2GRAY) > 0
+    assert (rounded != jm[..., 0]).sum() == 18
+
+
 def test_kaggle_rle_matches_jax():
     rng = np.random.default_rng(3)
     for _ in range(5):

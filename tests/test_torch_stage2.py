@@ -93,6 +93,35 @@ def test_tum_sequence_equals_jax(tum_dir, kw):
             np.testing.assert_array_equal(b[key], a[key], err_msg=key)
 
 
+def test_tum_frames_of_other_png_kinds_equal_jax(tum_dir, tmp_path):
+    """The same sequence with its frames saved as other PNG kinds (rgb as
+    RGBA, the masks as colour labels): every field of every frame equals
+    the JAX frontend's, dtype and shape included."""
+    import shutil
+
+    from PIL import Image
+
+    root = tmp_path / "tum"
+    shutil.copytree(tum_dir, root)
+    for name in sorted(os.listdir(root / "rgb")):
+        bgr = cv2.imread(str(root / "rgb" / name))
+        alpha = np.full(bgr.shape[:2] + (1,), 200, np.uint8)
+        Image.fromarray(np.concatenate([bgr[:, :, ::-1], alpha], 2)).save(
+            root / "rgb" / name)
+        m = cv2.imread(str(root / "mask" / name), cv2.IMREAD_UNCHANGED)
+        colour = np.stack([m * 40, m * 3, 255 - m * 50], -1).astype(np.uint8)
+        colour[m == 0] = 0
+        cv2.imwrite(str(root / "mask" / name), colour)
+    js, ts = jtum.TUMSequence(str(root)), ttum.TUMSequence(str(root))
+    assert len(ts) == len(js) > 0
+    for k in range(len(js)):
+        a, b = js[k], ts[k]
+        for key in a:
+            assert np.asarray(b[key]).dtype == np.asarray(a[key]).dtype, key
+            np.testing.assert_array_equal(b[key], a[key], err_msg=key)
+        assert b["mask"].ndim == 2 and b["color"].shape[2] == 3
+
+
 def test_tum_helpers_equal_jax(tum_dir):
     rng = np.random.default_rng(0)
     q1, q2 = rng.normal(size=4), rng.normal(size=4)
