@@ -539,9 +539,10 @@ def chunk_path(dev, model, state, staged, K4, dist):
 
 def profile_run(fn, n_frames: int, unit: str):
     """torch.profiler over one more call of ``fn`` (after the counted run),
-    which covers ``n_frames`` frames: the device's busy share of the wall
-    time, launches per frame, and the top ops by device and by host self
-    time. Returns the busy share."""
+    which covers ``n_frames`` frames: its wall time, launches and syncs per
+    frame, and the top ops by device and by host self time. (The
+    benchmark's traced stretch, h100bench/trace.py, gives the device's busy
+    time as the union of its intervals.)"""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -560,11 +561,9 @@ def profile_run(fn, n_frames: int, unit: str):
     # device rows are the kernels and copies themselves (an op's row
     # repeats its kernels' time)
     on_dev = [e for e in rows if e.device_type == DeviceType.CUDA]
-    busy = sum(dev_us(e) for e in on_dev)
     n_launch = sum(e.count for e in rows if e.key == "cudaLaunchKernel")
     n_sync = sum(e.count for e in rows if e.key == "cudaStreamSynchronize")
-    log(f"[profile] {n_steps} x {unit}: wall {wall_us / 1e3:.3f} ms, device "
-        f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
+    log(f"[profile] {n_steps} x {unit}: wall {wall_us / 1e3:.3f} ms, "
         f"{n_launch / n_steps:.0f} cudaLaunchKernel and "
         f"{n_sync / n_steps:.1f} cudaStreamSynchronize per {unit}")
     for key, title, pool in ((dev_us, "device", on_dev),
@@ -574,7 +573,6 @@ def profile_run(fn, n_frames: int, unit: str):
             f"{unit}, calls):")
         for e in top:
             log(f"[profile]   {key(e) / 1e3:9.3f}  {e.count:6d}  {e.key[:90]}")
-    return busy / wall_us
 
 
 def roi_read_bytes(feats, boxes, pool, image_shape) -> int:
@@ -1206,7 +1204,7 @@ def stage2_xla(dev, Ks, small):
     check(ids == [0, 1, 2] and sf.state.hist.dtype == torch.int32,
           f"xla {XLA_VOL}^3 u32 association: ids {ids}")
     st = staged[-1]
-    busy = profile_run(lambda: sf.parse_frame(
+    profile_run(lambda: sf.parse_frame(
         st["depth"], st["color"], st["mask"], frames[-1]["extrinsic"],
         frames[-1]["mean_depth"]), 1, "xla frame")
     log(f"[stage2] xla backend at {XLA_VOL}^3 (u32 histogram, {H}x{W}): "
@@ -1215,7 +1213,7 @@ def stage2_xla(dev, Ks, small):
     del sf, staged
     torch.cuda.empty_cache()
     return dict(xla_64_max_diff_err=errs, xla_256_fps=fps,
-                xla_256_peak_gib=peak, xla_256_busy_share=busy)
+                xla_256_peak_gib=peak)
 
 
 def _copy(a):
@@ -1359,8 +1357,7 @@ def pipeline_phase(dev):
     check(m_ap >= 0.62, f"trained bf16 mAP@50 {m_ap} < 0.62")
     summary["detect_bf16"] = dict(map50=m_ap, ms_per_image=ms_img,
                                   detections=n_det)
-    summary["detect_bf16"]["busy"] = profile_run(
-        lambda: detect_all(model), len(scenes), "trained image")
+    profile_run(lambda: detect_all(model), len(scenes), "trained image")
 
     # f32 with TF32 left on by the caller: the model turns it off itself
     class F32(InferenceShapesConfig):
@@ -1543,7 +1540,7 @@ def pipeline_phase(dev):
         TUMSequence(seq_gt), verbose=False))
     check(live.frames_done == PIPE_FRAMES
           and live.fusion.state.n_obs == n_fused, "run_device frames")
-    summary["live_device_busy"] = profile_run(
+    profile_run(
         lambda: LivePipeline(coco, K4, cfg, backend="pallas",
                              use_depth_filter=False)
         .run_device(TUMSequence(seq_gt), verbose=False), PIPE_FRAMES,
@@ -1625,8 +1622,7 @@ def train_phase(dev):
        against the JAX step);
     3. TRAIN_STEPS bfloat16 steps from seeded init, layers "all": every
        loss finite, the mean of the last 20 below that of the first 20;
-       ms a step, peak memory, the device's busy share, NMS launches a
-       step (counted from 0);
+       ms a step, peak memory, NMS launches a step (counted from 0);
     4. the NMS kernel at the training shape (batch 8, n 4092, 2000
        outputs, IoU 0.7) on the proposal layer's own inputs from a step
        of (3), against its plain version in every image, and timed;
@@ -1763,7 +1759,7 @@ def train_phase(dev):
         f"loss {hist[0]:.3f} -> {hist[-1]:.3f} (mean of the first 20 "
         f"{first:.3f}, last 20 {last:.3f}), launches {launches} "
         f"({launches['nms'] / TRAIN_STEPS:.0f} NMS a step)")
-    busy = profile_run(lambda: run(2, 7, []), 5, "training step")
+    profile_run(lambda: run(2, 7, []), 5, "training step")
 
     # ---- 4. the NMS kernel at the training shape
     b, s, cap, thr, sthr = seen["args"]
@@ -1817,7 +1813,7 @@ def train_phase(dev):
     summary = dict(step_ms=step_ms, steps_per_s=1e3 / step_ms,
                    wall_ms_per_step=wall * 1e3 / TRAIN_STEPS,
                    host_data_ms_per_batch=data_ms, peak_gib=peak,
-                   busy_share=busy, loss_first20=first, loss_last20=last,
+                   loss_first20=first, loss_last20=last,
                    nms_per_step=launches["nms"] / TRAIN_STEPS,
                    f32_parts_rel_err=max(rel.values()), f32_param_err=p_err,
                    seconds=time.time() - t_phase)
@@ -1935,7 +1931,7 @@ def samples_phase(dev):
        at IoU 0.9, 128 rois, 200 gt), f32 with TRAIN_BN, the reference
        nucleus sample's augmentation: batches drawn on the host (timed),
        NUCLEUS_STEPS steps of Trainer.make_step (CUDA events), every loss
-       finite; peak memory, busy share, NMS launches a step;
+       finite; peak memory, NMS launches a step;
     2. nucleus, detect: NucleusInferenceConfig ("pad64" at 512^2, 2000
        proposals, up to 400 detections) with the trained tensors over the
        tree through ``nucleus.detect``: every submit.csv line decodes back
@@ -2044,9 +2040,9 @@ def samples_phase(dev):
         f"{step_ms:.2f} ms a step, peak {peak:.2f} GiB, loss {hist[0]:.3f} "
         f"-> {hist[-1]:.3f}, {nms_step:.0f} NMS launch a step, launches "
         f"{by_path['nucleus_train']}")
-    busy = profile_run(lambda: run(2, 5, []), 3, "nucleus training step")
+    profile_run(lambda: run(2, 5, []), 3, "nucleus training step")
     summary["nucleus_train"] = dict(
-        step_ms=step_ms, peak_gib=peak, busy_share=busy,
+        step_ms=step_ms, peak_gib=peak,
         host_ms_per_augmented_batch=data_ms, nms_per_step=nms_step,
         loss_first=float(hist[0]), loss_last=float(hist[-1]),
         steps=len(hist))

@@ -11,7 +11,8 @@ with the pixel counts alongside; prob = exp(score / count). The best n
 per m is accepted iff prob > 3 * prior, claimed greedily 1-1 in ascending
 m with best-prob replacement; unmatched ids take fresh global ids in
 raster order of first occurrence. Everything stays on the device: the
-claim loop is K small tensor steps with no host sync.
+claim loop is K small tensor steps with no host sync. The host waits once,
+to upload the relabel table's bin 0.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
+from slam_maskrcnn_tpu_torch.utils.profiling import sync
 
 
 def associate_instances(probs: torch.Tensor, box_mask: torch.Tensor,
@@ -85,7 +87,8 @@ def associate_instances(probs: torch.Tensor, box_mask: torch.Tensor,
     fresh = num_objs.to(torch.int64) + rank
     new_num_objs = (num_objs + needs_new.sum()).to(torch.int32)
     relabel = torch.where(rev >= 0, rev, torch.where(needs_new, fresh, m_ids))
-    relabel[0] = 0
+    with sync("associate.relabel0"):        # a host scalar's upload
+        relabel[0] = 0
     return relabel, new_num_objs
 
 

@@ -57,6 +57,7 @@ from slam_maskrcnn_tpu_torch.device import on_cuda, resolve_device
 from slam_maskrcnn_tpu_torch.fusion import state as _state
 from slam_maskrcnn_tpu_torch.fusion.state import (FusionConfig, TSDFState,
                                                   volume_bbox_from_depth)
+from slam_maskrcnn_tpu_torch.utils.profiling import to_host
 
 
 def init_state(cfg: FusionConfig, vol_start, vol_end, device="cuda",
@@ -137,7 +138,7 @@ def from_dense(state, device="cuda", hist_dtype=np.uint16) -> TSDFState:
 
 def _host_f32(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
+        a = to_host("host_f32", a.detach()).numpy()
     return np.asarray(a, np.float32)
 
 

@@ -21,7 +21,10 @@ Control flow as ``parse_frame``/``launch_kernel`` (tsdf.cu:171-228,
 Every step returns ``misses``, a 0-d int64 tensor on the volume's device:
 the probe's budget overflow (surface the splat dropped; 0 for the depth
 probe). The fuse kernel itself gathers every voxel's pixel and has nothing
-to miss. Nothing here syncs with the host.
+to miss. The host waits on the device only where ``parse_frame`` reads
+the miss count back (every ``miss_check_every`` frames) and where a host
+array or constant is uploaded; each such site goes through
+utils/profiling.py ``sync``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from slam_maskrcnn_tpu_torch.fusion.splat import (depth_probe,
                                                   probe_from_rows,
                                                   splat_probe)
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig, TSDFState
+from slam_maskrcnn_tpu_torch.utils.profiling import span, sync, to_host
 
 
 def _zero(vol: TSDFState) -> torch.Tensor:
@@ -75,19 +79,24 @@ def fusion_step(vol: TSDFState, depth: torch.Tensor, color: torch.Tensor,
     to probe (probe_mode="splat"), when the caller shares one with its
     render. Returns (vol, relabeled mask, misses)."""
     if vol.n_obs > 0:
-        probs, bm, s, overflow = _probe(vol, depth, extrinsic2init,
-                                        intrinsic, cfg, rows)
-        relabel, num_objs = associate_instances(
-            probs, bm, mask[::s, ::s], vol.n_obs, vol.num_objs, cfg)
+        with span("probe"):
+            probs, bm, s, overflow = _probe(vol, depth, extrinsic2init,
+                                            intrinsic, cfg, rows)
+        with span("associate"):
+            relabel, num_objs = associate_instances(
+                probs, bm, mask[::s, ::s], vol.n_obs, vol.num_objs, cfg)
     else:
-        relabel = torch.arange(cfg.max_objects, device=vol.device)
-        num_objs = mask.max().to(torch.int32) + 1
-        overflow = _zero(vol)
-    mask_g = apply_relabel(mask, relabel)
-    vol.num_objs = num_objs
+        with span("associate"):
+            relabel = torch.arange(cfg.max_objects, device=vol.device)
+            num_objs = mask.max().to(torch.int32) + 1
+            overflow = _zero(vol)
+    with span("relabel"):
+        mask_g = apply_relabel(mask, relabel)
+        vol.num_objs = num_objs
     if mark is not None:
         mark("associate")
-    fuse_frame(vol, depth, color, mask_g, extrinsic2init, intrinsic, cfg)
+    with span("fuse"):
+        fuse_frame(vol, depth, color, mask_g, extrinsic2init, intrinsic, cfg)
     if mark is not None:
         mark("fuse")
     return vol, mask_g, overflow
@@ -117,34 +126,45 @@ def fusion_step_pair(vol: TSDFState, d1, c1, m1, e1, d2, c2, m2, e2,
     K = cfg.max_objects
     dev = vol.device
     if vol.n_obs > 0:
-        probs1, bm1, s, ovf1 = _probe(vol, d1, e1, intrinsic, cfg)
-        relabel1, num1 = associate_instances(
-            probs1, bm1, m1[::s, ::s], vol.n_obs, vol.num_objs, cfg)
+        with span("probe"):
+            probs1, bm1, s, ovf1 = _probe(vol, d1, e1, intrinsic, cfg)
+        with span("associate"):
+            relabel1, num1 = associate_instances(
+                probs1, bm1, m1[::s, ::s], vol.n_obs, vol.num_objs, cfg)
     else:
-        relabel1 = torch.arange(K, device=dev)
-        num1 = m1.max().to(torch.int32) + 1
-        ovf1 = _zero(vol)
-    mask_g1 = apply_relabel(m1, relabel1)
+        with span("associate"):
+            relabel1 = torch.arange(K, device=dev)
+            num1 = m1.max().to(torch.int32) + 1
+            ovf1 = _zero(vol)
+    with span("relabel"):
+        mask_g1 = apply_relabel(m1, relabel1)
 
     # frame 2: the same (pre-pair) histogram, num_objs chained through 1
-    probs2, bm2, s, ovf2 = _probe(vol, d2, e2, intrinsic, cfg)
-    if cfg.pair_probe_boost:
-        g1 = mask_g1[::s, ::s].to(torch.int64)
-        d1s = d1[::s, ::s].to(torch.int32).to(torch.float32) / cfg.depth_scale
-        d2s = d2[::s, ::s].to(torch.int32).to(torch.float32) / cfg.depth_scale
-        near = (d1s > 0) & (d2s > 0) & ((d1s - d2s).abs() <= float(vol.mu))
-        oh = ((g1[..., None] == torch.arange(K, device=dev))
-              & near[..., None])
-        probs2 = probs2 + oh.to(probs2.dtype)
-        bm2 = bm2 | oh
-    relabel2, num2 = associate_instances(probs2, bm2, m2[::s, ::s],
-                                         vol.n_obs + 1, num1, cfg)
-    mask_g2 = apply_relabel(m2, relabel2)
-    vol.num_objs = num2
+    with span("probe"):
+        probs2, bm2, s, ovf2 = _probe(vol, d2, e2, intrinsic, cfg)
+        if cfg.pair_probe_boost:
+            g1 = mask_g1[::s, ::s].to(torch.int64)
+            d1s = (d1[::s, ::s].to(torch.int32).to(torch.float32)
+                   / cfg.depth_scale)
+            d2s = (d2[::s, ::s].to(torch.int32).to(torch.float32)
+                   / cfg.depth_scale)
+            near = ((d1s > 0) & (d2s > 0)
+                    & ((d1s - d2s).abs() <= float(vol.mu)))
+            oh = ((g1[..., None] == torch.arange(K, device=dev))
+                  & near[..., None])
+            probs2 = probs2 + oh.to(probs2.dtype)
+            bm2 = bm2 | oh
+    with span("associate"):
+        relabel2, num2 = associate_instances(probs2, bm2, m2[::s, ::s],
+                                             vol.n_obs + 1, num1, cfg)
+    with span("relabel"):
+        mask_g2 = apply_relabel(m2, relabel2)
+        vol.num_objs = num2
     if mark is not None:
         mark("associate")
-    fuse_frames2(vol, d1, c1, mask_g1, e1, d2, c2, mask_g2, e2, intrinsic,
-                 cfg)
+    with span("fuse"):
+        fuse_frames2(vol, d1, c1, mask_g1, e1, d2, c2, mask_g2, e2,
+                     intrinsic, cfg)
     if mark is not None:
         mark("fuse")
     return vol, (mask_g1, mask_g2), ovf1 + ovf2
@@ -225,10 +245,14 @@ def fuse_sequence(state: TSDFState, depths, colors, masks,
 
 
 def _tensor(a, dev) -> torch.Tensor:
-    """A frame array (numpy, or a tensor already staged) on ``dev``."""
-    if isinstance(a, torch.Tensor):
+    """A frame array (numpy, or a tensor already staged) on ``dev``. An
+    array in host memory is a blocking upload."""
+    if isinstance(a, torch.Tensor) and a.device.type != "cpu":
         return a.to(dev)
-    return torch.from_numpy(np.asarray(a)).to(dev)
+    with sync("upload"):
+        if isinstance(a, torch.Tensor):
+            return a.to(dev)
+        return torch.from_numpy(np.asarray(a)).to(dev)
 
 
 class SemanticFusion:
@@ -283,39 +307,47 @@ class SemanticFusion:
         """Feed one frame. Returns the relabeled (global-id) mask tensor for
         frames that fuse, else None (frame 0 only initializes). The step's
         miss count stays in ``last_misses`` (a device tensor)."""
+        with span("parse_frame"):
+            return self._parse_frame(depth, color, mask, extrinsic,
+                                     mean_depth)
+
+    def _parse_frame(self, depth, color, mask, extrinsic, mean_depth):
         if self.state is None or mean_depth is None:
-            host_depth = (depth.cpu().numpy() if isinstance(depth,
-                                                            torch.Tensor)
+            host_depth = (to_host("depth", depth).numpy()
+                          if isinstance(depth, torch.Tensor)
                           else np.asarray(depth))
         if mean_depth is None:
             valid = host_depth > 0
             mean_depth = float((host_depth[valid].astype(np.float64)
                                 / self.cfg.depth_scale).mean())
         if self.state is None:
-            init = (init_from_first_frame if self.backend == "pallas"
-                    else _state.init_from_first_frame)
-            self.state = init(self.cfg, host_depth, self.intrinsic,
-                              mean_depth, self.device)
-            self.init_extrinsic_inv = np.linalg.inv(
-                np.asarray(extrinsic, np.float64)).astype(np.float32)
-            self.mean_depth = mean_depth
+            with span("init"):
+                init = (init_from_first_frame if self.backend == "pallas"
+                        else _state.init_from_first_frame)
+                self.state = init(self.cfg, host_depth, self.intrinsic,
+                                  mean_depth, self.device)
+                self.init_extrinsic_inv = np.linalg.inv(
+                    np.asarray(extrinsic, np.float64)).astype(np.float32)
+                self.mean_depth = mean_depth
             return None
         e2i = (np.asarray(extrinsic, np.float32)
                @ self.init_extrinsic_inv).astype(np.float32)
         dev = self.device
+        with span("upload"):
+            depth, color, mask = (_tensor(depth, dev), _tensor(color, dev),
+                                  _tensor(mask, dev))
         if self.backend == "xla":
             self.state, mask_g = fusion_step_dense(
-                self.state, _tensor(depth, dev), _tensor(color, dev),
-                _tensor(mask, dev), e2i, self.intrinsic, self.intrinsic_inv,
-                self.cfg)
+                self.state, depth, color, mask, e2i, self.intrinsic,
+                self.intrinsic_inv, self.cfg)
             return mask_g
         self.state, mask_g, self.last_misses = fusion_step(
-            self.state, _tensor(depth, dev), _tensor(color, dev),
-            _tensor(mask, dev), e2i, self.intrinsic, self.cfg)
+            self.state, depth, color, mask, e2i, self.intrinsic, self.cfg)
         self._frame_idx += 1
         if (self.miss_check_every
                 and self._frame_idx % self.miss_check_every == 0):
-            m = int(self.last_misses)  # sync point, every Nth frame only
+            with sync("misses"):  # every Nth frame only
+                m = int(self.last_misses)
             if m > 0:
                 self.total_misses += m
                 if self.on_miss is not None:

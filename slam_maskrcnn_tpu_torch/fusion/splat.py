@@ -39,6 +39,7 @@ import torch
 
 from slam_maskrcnn_tpu_torch.fusion.fuse import _host_f32
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig, TSDFState
+from slam_maskrcnn_tpu_torch.utils.profiling import sync
 
 BX, BY, BZ = 8, 8, 32          # block geometry of the enumeration order
 ROW = 128                      # voxels per row (4 y by 32 z)
@@ -103,14 +104,15 @@ def pinhole_of_orbit(angle, dist, intrinsic):
 def _nonzero_fixed(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     """= jnp.nonzero(mask, size=size, fill_value=fill) for a 1-D mask: the
     ascending indices of the first ``size`` true entries, padded with
-    ``fill``. Static shape, no host sync."""
+    ``fill``. Static shape; the host waits once, to upload ``fill``."""
     n = mask.shape[0]
     pos = torch.cumsum(mask, 0) - 1
     slot = torch.where(mask & (pos < size), pos, torch.full_like(pos, size))
     out = torch.full((size + 1,), fill, dtype=torch.int64,
                      device=mask.device)
     out.scatter_(0, slot, torch.arange(n, device=mask.device))
-    out[size] = fill
+    with sync("compact.fill"):              # a host scalar's upload
+        out[size] = fill
     return out[:size]
 
 
@@ -407,7 +409,8 @@ def shade_fetched(have, bgr, rows, mode: str) -> torch.Tensor:
     obj = torch.argmax(rows, dim=-1)           # first maximum wins ties
     maxc = rows.max(dim=-1).values
     lit = have & (obj > 0) & (maxc > 0)
-    pal = torch.from_numpy(INSTANCE_PALETTE[:K]).to(rows.device)
+    with sync("render.palette"):
+        pal = torch.from_numpy(INSTANCE_PALETTE[:K]).to(rows.device)
     return torch.where(lit[..., None], pal[obj], torch.zeros_like(pal[:1]))
 
 
@@ -462,7 +465,11 @@ def depth_probe(vol: TSDFState, depth: torch.Tensor, extrinsic2init,
     s = cfg.probe_stride
     dev = vol.device
     X, Y, Z = vol.diff.shape
-    f = lambda a: torch.tensor(float(a), dtype=torch.float32, device=dev)
+
+    def f(a):
+        with sync("probe.const"):
+            return torch.tensor(float(a), dtype=torch.float32, device=dev)
+
     d_m = depth[::s, ::s].to(dev).to(torch.float32) / f(cfg.depth_scale)
     Hs, Ws = d_m.shape
     Kinv = np.linalg.inv(_host_f32(intrinsic)[:3, :3]).astype(np.float32)

@@ -24,6 +24,8 @@ import shutil
 import subprocess
 import threading
 
+from slam_maskrcnn_tpu_torch.utils import profiling
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -176,18 +178,25 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 class LaunchCounter:
-    """Launch counts of every kernel wrapper. A wrapper adds one where it
-    launches its kernel and nowhere else."""
+    """Launch counts of every kernel wrapper: the ``launch.<kernel>``
+    counters of utils/profiling.py's counter store, always on (a profiler
+    session also gets them). A wrapper adds one where it launches its
+    kernel and nowhere else."""
 
-    def __init__(self):
-        self.counts = {n: 0 for n in KERNELS}
+    PREFIX = "launch."
+
+    @property
+    def counts(self) -> dict:
+        c = profiling.counters(self.PREFIX)
+        return {n: c.get(self.PREFIX + n, 0) for n in KERNELS}
 
     def add(self, name: str) -> None:
-        self.counts[name] += 1
+        if name not in KERNELS:
+            raise KeyError(name)
+        profiling.count(self.PREFIX + name)
 
     def reset(self) -> None:
-        for n in self.counts:
-            self.counts[n] = 0
+        profiling.reset_counters(self.PREFIX)
 
 
 launches = LaunchCounter()

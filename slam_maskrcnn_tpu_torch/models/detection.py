@@ -14,6 +14,7 @@ import torch
 
 from slam_maskrcnn_tpu_torch.ops.boxes import apply_box_deltas, clip_boxes
 from slam_maskrcnn_tpu_torch.ops.nms import non_max_suppression
+from slam_maskrcnn_tpu_torch.utils.profiling import sync
 
 NEG_INF = -1e9
 
@@ -26,7 +27,9 @@ def detection_layer(rois: torch.Tensor, probs: torch.Tensor,
     [B, N, C, 4], windows [B, 4] normalized. Returns (detections
     [B, max_instances, 6] = (y1, x1, y2, x2, class_id, score) zero-padded,
     valid [B, max_instances])."""
-    std = torch.as_tensor(bbox_std, dtype=torch.float32, device=rois.device)
+    with sync("heads.const"):
+        std = torch.as_tensor(bbox_std, dtype=torch.float32,
+                              device=rois.device)
     class_ids = torch.argmax(probs, dim=2)                  # first max wins
     class_scores = torch.gather(probs, 2, class_ids[..., None])[..., 0]
     deltas_specific = torch.gather(

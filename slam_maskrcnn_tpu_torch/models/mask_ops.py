@@ -26,6 +26,7 @@ import torch
 
 from slam_maskrcnn_tpu_torch.data.image_io import IMREAD_ANYDEPTH, imread
 from slam_maskrcnn_tpu_torch.data.png import write_png
+from slam_maskrcnn_tpu_torch.utils.profiling import span, sync, to_host
 
 
 def depth_filter(depth_image: np.ndarray, masks: np.ndarray,
@@ -73,16 +74,17 @@ def mask_detect(model, rgb_image: np.ndarray,
     """detect -> filter -> label-encode (``dmask.py:47-59``). Returns
     uint8 [H, W] with instance i's pixels = i+1."""
     result = model.detect([rgb_image], verbose=0)[0]
-    masks = result["masks"].astype(bool)
-    if depth_image is not None:
-        masks = depth_filter(depth_image, masks)
-    if noise_remove:
-        masks = filter_tiny_objects(masks)
-    masks = preserve_small_objs(masks)
-    cls = np.zeros(rgb_image.shape[:2], np.uint8)
-    for i in range(masks.shape[2]):
-        cls[masks[:, :, i]] = i + 1
-    return cls
+    with span("label"):
+        masks = result["masks"].astype(bool)
+        if depth_image is not None:
+            masks = depth_filter(depth_image, masks)
+        if noise_remove:
+            masks = filter_tiny_objects(masks)
+        masks = preserve_small_objs(masks)
+        cls = np.zeros(rgb_image.shape[:2], np.uint8)
+        for i in range(masks.shape[2]):
+            cls[masks[:, :, i]] = i + 1
+        return cls
 
 
 def label_masks_device(detections: torch.Tensor, masks_u8: torch.Tensor,
@@ -97,17 +99,25 @@ def label_masks_device(detections: torch.Tensor, masks_u8: torch.Tensor,
     thresholds at 0.5, drops masks of area <= min_area, and overlaps go to
     the smaller mask (ties to the earlier detection). Labels are kept-list
     positions + 1."""
+    with span("label"):
+        return _label_masks(detections, masks_u8, window_norm, out_shape,
+                            min_area)
+
+
+def _label_masks(detections, masks_u8, window_norm, out_shape, min_area):
     D, S = masks_u8.shape[0], masks_u8.shape[1]
     oh, ow = int(out_shape[0]), int(out_shape[1])
     dev = detections.device
     wy1, wx1, wy2, wx2 = (window_norm[0], window_norm[1], window_norm[2],
                           window_norm[3])
-    shift = torch.tensor([0.0, 0.0, 1.0, 1.0], device=dev)
+    with sync("label.const"):
+        shift = torch.tensor([0.0, 0.0, 1.0, 1.0], device=dev)
     wscale = torch.stack([wy2 - wy1, wx2 - wx1, wy2 - wy1, wx2 - wx1])
     woff = torch.stack([wy1, wx1, wy1, wx1])
     boxes = (detections[:, :4] - woff) / wscale
-    oscale = torch.tensor([oh - 1, ow - 1, oh - 1, ow - 1],
-                          dtype=torch.float32, device=dev)
+    with sync("label.const"):
+        oscale = torch.tensor([oh - 1, ow - 1, oh - 1, ow - 1],
+                              dtype=torch.float32, device=dev)
     bpx = torch.round(boxes * oscale + shift).to(torch.int32)
     y1, x1, y2, x2 = bpx[:, 0], bpx[:, 1], bpx[:, 2], bpx[:, 3]
     valid = (detections[:, 4] > 0) & (y2 > y1) & (x2 > x1)
@@ -152,7 +162,7 @@ def mask_detect_device(model, rgb_image, min_area: int = 2000) -> np.ndarray:
                                nwin[0].to(model.device),
                                np.asarray(rgb_image).shape[:2],
                                min_area=min_area)
-    return label.cpu().numpy()
+    return to_host("label", label).numpy()
 
 
 def batch_mask_process(model, rgb_dir: str, mask_dir: str,
@@ -170,23 +180,24 @@ def batch_mask_process(model, rgb_dir: str, mask_dir: str,
         sorted(glob.glob(os.path.join(rgb_dir, "*.jpg")))
     stage = timer if timer is not None else (
         lambda name: contextlib.nullcontext())
-    for k, f in enumerate(files):
-        with stage("read"):
-            bgr = imread(f, device=model.device)
-            if bgr is None:
-                raise FileNotFoundError(f)
-            rgb = np.ascontiguousarray(bgr[:, :, ::-1])  # BGR -> RGB
-            depth = None
-            if depth_dir is not None:
-                dfile = os.path.join(depth_dir, os.path.basename(f))
-                if os.path.exists(dfile):
-                    depth = imread(dfile, IMREAD_ANYDEPTH)
-        with stage("detect"):
-            cls = mask_detect(model, rgb, depth)
-        out = os.path.join(mask_dir, os.path.splitext(os.path.basename(f))[0]
-                           + ".png")
-        with stage("write"):
-            write_png(out, cls)
-        if verbose:
-            print(f"[{k + 1}/{len(files)}] {out} ({cls.max()} instances)")
+    with span("mask_process"):
+        for k, f in enumerate(files):
+            with stage("read"), span("read"):
+                bgr = imread(f, device=model.device)
+                if bgr is None:
+                    raise FileNotFoundError(f)
+                rgb = np.ascontiguousarray(bgr[:, :, ::-1])  # BGR -> RGB
+                depth = None
+                if depth_dir is not None:
+                    dfile = os.path.join(depth_dir, os.path.basename(f))
+                    if os.path.exists(dfile):
+                        depth = imread(dfile, IMREAD_ANYDEPTH)
+            with stage("detect"), span("mask_detect"):
+                cls = mask_detect(model, rgb, depth)
+            out = os.path.join(mask_dir, os.path.splitext(
+                os.path.basename(f))[0] + ".png")
+            with stage("write"), span("write"):
+                write_png(out, cls)
+            if verbose:
+                print(f"[{k + 1}/{len(files)}] {out} ({cls.max()} instances)")
     return len(files)

@@ -44,6 +44,7 @@ from slam_maskrcnn_tpu_torch.models.rpn import RPNHead
 from slam_maskrcnn_tpu_torch.ops.resize import resize_linear
 from slam_maskrcnn_tpu_torch.ops.roi_align import (pyramid_roi_align,
                                                    pyramid_roi_align_train)
+from slam_maskrcnn_tpu_torch.utils.profiling import span, sync, to_host
 
 
 @contextlib.contextmanager
@@ -174,29 +175,36 @@ class MaskRCNNModule(nn.Module):
         return outputs, targets
 
     def _forward(self, images, anchors, windows):
-        pyramid = self.features(images)
+        with span("backbone"):
+            pyramid = self.features(images)
         feats = pyramid[:4]
-        _, rpn_probs, rpn_bbox = self.rpn_outputs(pyramid)
-        proposals, _ = generate_proposals(
-            rpn_probs, rpn_bbox, anchors, self.proposal_count,
-            self.rpn_nms_threshold, self.pre_nms_limit, self.rpn_bbox_std)
+        with span("rpn"):
+            _, rpn_probs, rpn_bbox = self.rpn_outputs(pyramid)
+        with span("proposals"):
+            proposals, _ = generate_proposals(
+                rpn_probs, rpn_bbox, anchors, self.proposal_count,
+                self.rpn_nms_threshold, self.pre_nms_limit,
+                self.rpn_bbox_std)
         B, N = proposals.shape[:2]
-        pooled = self._roi_align(feats, proposals, self.pool_size)
-        _, probs, bbox = self.fpn_classifier(pooled.flatten(0, 1))
-        detections, det_valid = detection_layer(
-            proposals, probs.reshape(B, N, -1),
-            bbox.reshape(B, N, -1, 4), windows,
-            max_instances=self.detection_max_instances,
-            min_confidence=self.detection_min_confidence,
-            nms_threshold=self.detection_nms_threshold,
-            bbox_std=self.bbox_std)
+        with span("heads"):
+            pooled = self._roi_align(feats, proposals, self.pool_size)
+            _, probs, bbox = self.fpn_classifier(pooled.flatten(0, 1))
+            detections, det_valid = detection_layer(
+                proposals, probs.reshape(B, N, -1),
+                bbox.reshape(B, N, -1, 4), windows,
+                max_instances=self.detection_max_instances,
+                min_confidence=self.detection_min_confidence,
+                nms_threshold=self.detection_nms_threshold,
+                bbox_std=self.bbox_std)
         D = detections.shape[1]
-        mpooled = self._roi_align(feats, detections[..., :4],
-                                  self.mask_pool_size)
-        masks = self.fpn_mask(mpooled.flatten(0, 1))      # [B*D, 28, 28, C]
-        cls = detections[..., 4].long().reshape(B * D, 1, 1, 1)
-        masks = torch.gather(masks, 3, cls.expand(-1, *masks.shape[1:3], 1))
-        masks = torch.round(masks[..., 0] * 255.0).to(torch.uint8)
+        with span("mask_head"):
+            mpooled = self._roi_align(feats, detections[..., :4],
+                                      self.mask_pool_size)
+            masks = self.fpn_mask(mpooled.flatten(0, 1))  # [B*D, 28, 28, C]
+            cls = detections[..., 4].long().reshape(B * D, 1, 1, 1)
+            masks = torch.gather(masks, 3,
+                                 cls.expand(-1, *masks.shape[1:3], 1))
+            masks = torch.round(masks[..., 0] * 255.0).to(torch.uint8)
         return dict(detections=detections, detection_valid=det_valid,
                     masks=masks.reshape(B, D, *masks.shape[1:]),
                     proposals=proposals, rpn_probs=rpn_probs,
@@ -293,8 +301,9 @@ def resize_image(image, min_dim=None, max_dim=None, min_scale=None,
 
 def mold_image(image: torch.Tensor, config) -> torch.Tensor:
     """Subtract the mean pixel (``model.py:2706-2713``): f32 out."""
-    mean = torch.as_tensor(np.asarray(config.MEAN_PIXEL, np.float32),
-                           device=image.device)
+    with sync("mold.mean"):
+        mean = torch.as_tensor(np.asarray(config.MEAN_PIXEL, np.float32),
+                               device=image.device)
     return image.to(torch.float32) - mean
 
 
@@ -419,8 +428,10 @@ class MaskRCNN:
         cfg = self.config
         molded, windows = [], []
         for img in images:
+            with sync("mold.upload"):
+                img = torch.as_tensor(np.asarray(img)).to(self.device)
             m, window, _, _ = resize_image(
-                torch.as_tensor(np.asarray(img)).to(self.device),
+                img,
                 cfg.IMAGE_MIN_DIM, cfg.IMAGE_MAX_DIM, cfg.IMAGE_MIN_SCALE,
                 cfg.IMAGE_RESIZE_MODE,
                 rect_shape=getattr(cfg, "IMAGE_RECT_SHAPE", None))
@@ -446,12 +457,15 @@ class MaskRCNN:
     def run_graph(self, images):
         """Mold ``images`` and run the graph once for all of them. Returns
         (graph outputs, molded [B, H, W, 3] u8, windows [B, 4])."""
-        molded, windows = self.mold_inputs(images)
-        shape = tuple(molded.shape[1:])
-        out = self.module(mold_image(molded, self.config),
-                          self.anchors(shape),
-                          torch.from_numpy(self.norm_windows(windows, shape))
-                          .to(self.device))
+        with span("mold"):
+            molded, windows = self.mold_inputs(images)
+            shape = tuple(molded.shape[1:])
+            x = mold_image(molded, self.config)
+            anchors = self.anchors(shape)
+            with sync("mold.windows"):
+                nwin = torch.from_numpy(self.norm_windows(windows, shape)) \
+                    .to(self.device)
+        out = self.module(x, anchors, nwin)
         return out, molded, windows
 
     def detect(self, images, verbose: int = 0):
@@ -459,12 +473,15 @@ class MaskRCNN:
         graph run for all. Returns one dict per image: rois [N, 4] pixel
         (y1, x1, y2, x2) i32, class_ids [N], scores [N], masks [H, W, N]
         bool, as numpy."""
-        out, molded, windows = self.run_graph(images)
-        detections = out["detections"].cpu().numpy()
-        return [self.unmold_detections(detections[i], out["masks"][i],
-                                       np.asarray(img).shape,
-                                       tuple(molded.shape[1:]), windows[i])
-                for i, img in enumerate(images)]
+        with span("detect"):
+            out, molded, windows = self.run_graph(images)
+            detections = to_host("detections", out["detections"]).numpy()
+        with span("label"):
+            return [self.unmold_detections(detections[i], out["masks"][i],
+                                           np.asarray(img).shape,
+                                           tuple(molded.shape[1:]),
+                                           windows[i])
+                    for i, img in enumerate(images)]
 
     def unmold_detections(self, detections, mrcnn_mask, original_shape,
                           molded_shape, window):
@@ -496,12 +513,14 @@ class MaskRCNN:
                         & (boxes[:, 3] > boxes[:, 1]))[0]
         boxes, class_ids, scores = boxes[keep], class_ids[keep], scores[keep]
         masks = torch.as_tensor(mrcnn_mask)[:N]
-        masks = masks[torch.from_numpy(keep).to(masks.device)]
+        with sync("unmold.keep"):
+            keep_t = torch.from_numpy(keep).to(masks.device)
+        masks = masks[keep_t]
         if len(keep):
             full = torch.stack([unmold_mask(masks[i], boxes[i],
                                             original_shape)
                                 for i in range(len(keep))], -1)
-            full = full.cpu().numpy()
+            full = to_host("unmold.masks", full).numpy()
         else:
             full = np.empty(tuple(original_shape[:2]) + (0,), bool)
         return dict(rois=boxes, class_ids=class_ids, scores=scores,

@@ -10,6 +10,7 @@ import torch
 
 from slam_maskrcnn_tpu_torch.ops.boxes import apply_box_deltas, clip_boxes
 from slam_maskrcnn_tpu_torch.ops.nms import non_max_suppression
+from slam_maskrcnn_tpu_torch.utils.profiling import sync
 
 
 def generate_proposals(rpn_probs: torch.Tensor, rpn_bbox: torch.Tensor,
@@ -23,15 +24,17 @@ def generate_proposals(rpn_probs: torch.Tensor, rpn_bbox: torch.Tensor,
     lower anchor index (= lax.top_k): a stable descending sort, because
     torch.topk promises no order among ties. One NMS launch covers the
     batch."""
-    std = torch.as_tensor(bbox_std, dtype=torch.float32,
-                          device=rpn_probs.device)
+    with sync("proposals.const"):
+        std = torch.as_tensor(bbox_std, dtype=torch.float32,
+                              device=rpn_probs.device)
     scores = rpn_probs[:, :, 1]
     k = min(pre_nms_limit, anchors.shape[0])
     top_scores, ix = torch.sort(scores, dim=1, descending=True, stable=True)
     top_scores, ix = top_scores[:, :k], ix[:, :k]
     top_deltas = torch.gather(rpn_bbox, 1, ix[..., None].expand(-1, -1, 4))
     boxes = apply_box_deltas(anchors[ix], top_deltas * std)
-    window = torch.tensor([0.0, 0.0, 1.0, 1.0], device=rpn_probs.device)
+    with sync("proposals.const"):
+        window = torch.tensor([0.0, 0.0, 1.0, 1.0], device=rpn_probs.device)
     boxes = clip_boxes(boxes, window)
     idx, valid = non_max_suppression(boxes, top_scores, proposal_count,
                                      nms_threshold)

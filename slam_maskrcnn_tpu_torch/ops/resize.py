@@ -33,6 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam_maskrcnn_tpu_torch.utils.profiling import sync
+
 COEF_BITS = 11
 COEF_SCALE = 1 << COEF_BITS
 
@@ -101,7 +103,11 @@ def resize_linear(img: torch.Tensor, size) -> torch.Tensor:
     sy, fy = _taps(sh, dh, clamp=False, single=single)
     sx1 = np.minimum(sx + 1, sw - 1)
     sy0, sy1 = np.clip(sy, 0, sh - 1), np.clip(sy + 1, 0, sh - 1)
-    ix = lambda a: torch.from_numpy(a).to(dev)
+
+    def ix(a):
+        with sync("resize.taps"):
+            return torch.from_numpy(a).to(dev)
+
     C = img.shape[2]
     if img.dtype == torch.uint8:
         ax0, ax1 = _fixed(1.0 - fx), _fixed(fx)
@@ -114,7 +120,7 @@ def resize_linear(img: torch.Tensor, size) -> torch.Tensor:
         out = ((((s0 >> 4) * b0) >> 16) + (((s1 >> 4) * b1) >> 16) + 2) >> 2
         out = out.clamp(0, 255).to(torch.uint8)
     else:
-        f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+        f32 = lambda a: ix(a.astype(np.float32))
         ax0, ax1 = f32(1.0 - fx), f32(fx)
         by0, by1 = f32(1.0 - fy), f32(fy)
         rows = img[:, ix(sx)] * ax0[None, :, None]

@@ -57,6 +57,7 @@ from slam_maskrcnn_tpu_torch.fusion.splat import (_compact_shell, _shade,
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
 from slam_maskrcnn_tpu_torch.models.anchors import get_anchors
 from slam_maskrcnn_tpu_torch.models.mask_ops import label_masks_device
+from slam_maskrcnn_tpu_torch.utils.profiling import frame, span
 
 RENDER_MODES = ("instance", "color", "splatonly", "none")
 
@@ -104,11 +105,12 @@ def resize_bilinear(img: torch.Tensor, rh: int, rw: int) -> torch.Tensor:
 
 def _mold(colors_bgr: torch.Tensor, geom, mean_pixel) -> torch.Tensor:
     """Frames [N, H, W, 3] BGR u8 -> molded images [N, mh, mw, 3] f32."""
-    rh, rw, top, left, mh, mw = geom
-    rgb = colors_bgr.flip(-1).to(torch.float32)
-    img = torch.stack([resize_bilinear(f, rh, rw) for f in rgb])
-    img = F.pad(img, (0, 0, left, mw - rw - left, top, mh - rh - top))
-    return img - mean_pixel
+    with span("mold"):
+        rh, rw, top, left, mh, mw = geom
+        rgb = colors_bgr.flip(-1).to(torch.float32)
+        img = torch.stack([resize_bilinear(f, rh, rw) for f in rgb])
+        img = F.pad(img, (0, 0, left, mw - rw - left, top, mh - rh - top))
+        return img - mean_pixel
 
 
 def detect_mask_impl(module, anchors, nwin, color_bgr: torch.Tensor,
@@ -117,7 +119,8 @@ def detect_mask_impl(module, anchors, nwin, color_bgr: torch.Tensor,
     """Device molding + Mask R-CNN + label-encode for one frame (stage 1
     of the reference, mask_process.py:97-105 + dmask.py:47-59). Returns the
     label image u8 [H, W]."""
-    out = module(_mold(color_bgr[None], geom, mean_pixel), anchors, nwin)
+    with span("detect"):
+        out = module(_mold(color_bgr[None], geom, mean_pixel), anchors, nwin)
     if mark is not None:
         mark("detect")
     return label_masks_device(out["detections"][0], out["masks"][0],
@@ -132,13 +135,18 @@ def detect_mask_batched_impl(module, anchors, nwin,
     for the detections of all N frames; ROIAlign stays one launch per
     frame and head). Returns the label images u8 [N, H, W]."""
     N = colors_bgr.shape[0]
-    out = module(_mold(colors_bgr, geom, mean_pixel), anchors,
-                 nwin.expand(N, 4))
+    with span("detect"):
+        out = module(_mold(colors_bgr, geom, mean_pixel), anchors,
+                     nwin.expand(N, 4))
     if mark is not None:
         mark("detect")
-    return torch.stack([
-        label_masks_device(out["detections"][i], out["masks"][i], nwin[0],
-                           (H, W), min_area=2000) for i in range(N)])
+    labels = []
+    for i in range(N):
+        frame(i)
+        labels.append(label_masks_device(out["detections"][i],
+                                         out["masks"][i], nwin[0], (H, W),
+                                         min_area=2000))
+    return torch.stack(labels)
 
 
 def _shell(state, cfg: FusionConfig):
@@ -184,14 +192,17 @@ def fuse_render_step(state, mask, depth, color_bgr, e2i, intrinsic, angle,
     rows = None
     if cands is None and (render_mode != "none"
                           or cfg.probe_mode == "splat"):
-        rows = _shell(state, cfg)
+        with span("refresh"):
+            rows = _shell(state, cfg)
     state, mask_g, misses = fusion_step(
         state, depth, color_bgr, mask, e2i, intrinsic, cfg, mark,
         rows=rows if cfg.probe_mode == "splat" else None)
     if render_mode == "none":
         return state, _blank(state, H, W), mask_g, misses
-    render = _render_view(state, angle, dist, intrinsic, cfg, H, W,
-                          share_shell, render_mode, rows, cands, cands_dec)
+    with span("render"):
+        render = _render_view(state, angle, dist, intrinsic, cfg, H, W,
+                              share_shell, render_mode, rows, cands,
+                              cands_dec)
     if mark is not None:
         mark("render")
     return state, render, mask_g, misses
@@ -214,9 +225,11 @@ def fuse_render_pair_step(state, m1, d1, c1, e1, a1, m2, d2, c2, e2, a2,
     masks_g = torch.stack([mg1, mg2])
     if render_mode == "none":
         return state, _blank(state, H, W, 2), masks_g, misses
-    renders = torch.stack([
-        _render_view(state, a, dist, intrinsic, cfg, H, W, share_shell,
-                     render_mode, None, cands, cands_dec) for a in (a1, a2)])
+    with span("render"):
+        renders = torch.stack([
+            _render_view(state, a, dist, intrinsic, cfg, H, W, share_shell,
+                         render_mode, None, cands, cands_dec)
+            for a in (a1, a2)])
     if mark is not None:
         mark("render")
     return state, renders, masks_g, misses
@@ -270,10 +283,11 @@ class NorthStar:
         angle. The overflow is hard loss (shell block or row budget) and
         goes into the refresh frame's misses; the row cap's clip count is
         dropped here, as the probes drop theirs."""
-        M, m4 = pinhole_of_orbit(angle, dist, self.intrinsic)
-        codes, ovf, _clip = select_candidates(_shell(state, self.cfg), M, m4,
-                                              self.cfg.splat_row_cap)
-        dec = decode_candidates(codes, state)
+        with span("refresh"):
+            M, m4 = pinhole_of_orbit(angle, dist, self.intrinsic)
+            codes, ovf, _clip = select_candidates(
+                _shell(state, self.cfg), M, m4, self.cfg.splat_row_cap)
+            dec = decode_candidates(codes, state)
         if mark is not None:
             mark("refresh")
         return codes, dec, ovf
@@ -324,11 +338,12 @@ class NorthStar:
         candidate set is cached on the runner and refreshed every N calls;
         the refresh's overflow is in that call's misses.
         Returns (state, render [H, W, 3] u8, mask_g [H, W] u8, misses)."""
-        mask = self.detect(color_bgr, mark)
-        if mark is not None:
-            mark("label")
-        return self._frame(state, mask, depth, color_bgr, e2i, angle, dist,
-                           mark)
+        with span("step"):
+            mask = self.detect(color_bgr, mark)
+            if mark is not None:
+                mark("label")
+            return self._frame(state, mask, depth, color_bgr, e2i, angle,
+                               dist, mark)
 
     # ---- chunks
     def _run(self, state, depths, colors, es, angles, dist, masks, pair,
@@ -342,6 +357,7 @@ class NorthStar:
         renders, masks_g, misses = [], [], []
         self.reset_candidates()
         for i in range(0, N, 2 if pair else 1):
+            frame(i)
             if pair:
                 cands, dec, ovf = self._due_candidates(state, angles[i],
                                                        dist, 2, mark)
@@ -376,8 +392,9 @@ class NorthStar:
         es [N, 4, 4] and angles [N] on the host), detect inside the loop:
         the same outputs as N ``step`` calls. Returns (state, renders
         [N, H, W, 3] u8, masks_g [N, H, W], misses [N])."""
-        return self._run(state, depths, colors, es, angles, dist, None,
-                         False, mark)
+        with span("chunk"):
+            return self._run(state, depths, colors, es, angles, dist, None,
+                             False, mark)
 
     @torch.no_grad()
     def run_chunk_batched(self, state, depths, colors, es, angles, dist,
@@ -387,11 +404,12 @@ class NorthStar:
         fusion state). Batch-N convolutions may round differently from
         batch-1, which can flip a few mask border pixels. Adds N frames of
         latency: a live loop holds frames until the chunk fills."""
-        masks = self.detect_batched(colors, mark)
-        if mark is not None:
-            mark("label")
-        return self._run(state, depths, colors, es, angles, dist, masks,
-                         False, mark)
+        with span("chunk"):
+            masks = self.detect_batched(colors, mark)
+            if mark is not None:
+                mark("label")
+            return self._run(state, depths, colors, es, angles, dist, masks,
+                             False, mark)
 
     @torch.no_grad()
     def run_chunk_paired(self, state, depths, colors, es, angles, dist,
@@ -407,8 +425,9 @@ class NorthStar:
             raise ValueError("paired chunk needs an even frame count")
         if state.n_obs < 1:
             raise ValueError("paired chunk needs a warmed state (n_obs >= 1)")
-        masks = self.detect_batched(colors, mark)
-        if mark is not None:
-            mark("label")
-        return self._run(state, depths, colors, es, angles, dist, masks,
-                         True, mark)
+        with span("chunk"):
+            masks = self.detect_batched(colors, mark)
+            if mark is not None:
+                mark("label")
+            return self._run(state, depths, colors, es, angles, dist, masks,
+                             True, mark)
