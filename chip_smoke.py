@@ -12,15 +12,17 @@
    weights, rect molding to 768x1024, a 512^3 volume with a K=32 u16
    histogram, 480x640 RGB-D frames. Prints per-stage milliseconds (CUDA
    events), frames per second, peak memory, and each kernel's launches,
-   which must be 2 (NMS), 2 (ROIAlign) and 1 (fuse) per frame.
+   which must be 2 (NMS), 2 (ROIAlign), 1 (fuse) and 1 (association) per
+   frame.
 3. Main path, chunk form: NorthStar.run_chunk_paired over 16 frames with
    the in-loop render (mode "instance", candidates refreshed every 4
    frames) on the same model and volume: one batched detect (2 NMS and 2
    ROIAlign launches for the 16 frames), 8 launches of the paired fuse
-   kernel, 16 renders. Prints the same metrics with the
-   candidate refresh and the render as stages, checks the launch counts,
-   the state, the misses and a color-mode view of the final volume, and
-   holds run_chunk_paired against run_chunk_batched at 64^3.
+   kernel, 16 of the association kernel, 16 renders. Prints the same
+   metrics with the candidate refresh and the render as stages, checks
+   the launch counts, the state, the misses and a color-mode view of the
+   final volume, and holds run_chunk_paired against run_chunk_batched at
+   64^3.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (inputs captured from the main path, plus seeded
    inputs where the main path's are degenerate) and times both; the NMS
@@ -37,7 +39,11 @@
    fuse kernels' brick classes (skip / free / full) are held against
    ``brick_classes_plain`` and their shares printed; at 128^3 both fuse
    kernels also run seeded poses the main path does not reach (camera
-   inside the volume, looking away, grazing, depth with holes).
+   inside the volume, looking away, grazing, depth with holes). The
+   association kernel is held against ``claim_plain`` on the same scores:
+   the main path's (the depth probe at stride 2) and ``assoc_frames``'
+   cases at the splat probe's 480x640; it is timed behind a spin kernel
+   too.
 5. Stage 2 with the synthetic ground-truth masks at 512^3 (association
    with several ids, then an instance render that must show both
    spheres), and the same at 64^3 on the CPU (plain versions) vs the GPU
@@ -255,6 +261,102 @@ def nms_edge_cases():
     return cases
 
 
+# the association's cases (the CPU tests against the JAX package, the card
+# tests and phase 4): seeds, then the named cases; "chained" is two calls,
+# num_objs passed on
+ASSOC_CASES = (0, 1, 2, 3, "contested", "tied", "unmatched", "short_mask",
+               "chained")
+ASSOC_K = 32
+
+
+def assoc_seeded(seed, Hs=48, Ws=64):
+    """A label image of a few blobs and histogram votes that partly agree
+    with it (some ids match a global id, some are new)."""
+    rng = np.random.default_rng(seed)
+    bh, bw = Hs // 4, Ws // 4
+    mask = np.zeros((Hs, Ws), np.uint8)
+    n_ids = int(rng.integers(3, 7))
+    for i in range(1, n_ids + 1):
+        y, x = rng.integers(0, Hs - bh), rng.integers(0, Ws - bw)
+        mask[y:y + bh, x:x + bw] = i
+    n_obs = int(rng.integers(2, 6))
+    probs = rng.integers(0, 2, (Hs, Ws, ASSOC_K)).astype(np.float32)
+    for i in range(1, n_ids + 1):
+        if rng.uniform() < 0.6:                        # matches global id g
+            g = int(rng.integers(1, 10))
+            probs[mask == i, g] += n_obs
+    return probs, probs > 0.3, mask, n_obs, int(rng.integers(2, 10))
+
+
+def _assoc_blobs(Hs, Ws, where):
+    """A label image with id i on the block ``where[i]`` = (row, col) in
+    units of a twelfth of the height and a sixteenth of the width, each
+    block 2 x 3 units."""
+    mask = np.zeros((Hs, Ws), np.uint8)
+    uy, ux = Hs // 12, Ws // 16
+    for i, (r, c) in where.items():
+        mask[r * uy:(r + 2) * uy, c * ux:(c + 3) * ux] = i
+    return mask
+
+
+def assoc_named(case, Hs=48, Ws=64):
+    """(probs, box_mask, mask, n_obs, num_objs, expected) of a named case;
+    ``expected`` is ({id: the global id it must get}, the new num_objs).
+    Votes without a box mask score exactly exp(log(share)); every area
+    scales with the image, so the expectations hold at any size."""
+    n_obs = 4
+    probs = np.zeros((Hs, Ws, ASSOC_K), np.float32)
+    bm = np.zeros((Hs, Ws, ASSOC_K), bool)
+    if case == "contested":
+        # 1, 3 and 5 all vote for global 7: 3 outbids 1, 5 does not outbid 3
+        mask = _assoc_blobs(Hs, Ws, {1: (0, 0), 3: (0, 5), 5: (5, 0)})
+        for i, share in ((1, 0.6), (3, 1.0), (5, 0.8)):
+            probs[mask == i, 7] = share * n_obs
+        return probs, bm, mask, n_obs, 9, ({3: 7, 1: 9, 5: 10}, 11)
+    if case == "tied":
+        # 2 and 4 score exactly 1.0 for global 5: the earlier m keeps it;
+        # 1 scores exactly 1.0 for globals 3 and 6: the first n is its best
+        mask = _assoc_blobs(Hs, Ws, {2: (0, 0), 4: (5, 8), 1: (8, 3)})
+        probs[mask == 2, 5] = n_obs
+        probs[mask == 4, 5] = n_obs
+        probs[mask == 1, 3] = n_obs
+        probs[mask == 1, 6] = n_obs
+        return probs, bm, mask, n_obs, 8, ({2: 5, 4: 8, 1: 3}, 9)
+    if case == "unmatched":
+        # no votes: every present id is fresh, in raster order of its first
+        # pixel (6, 3, 2, 4, 1), not in id order
+        mask = _assoc_blobs(Hs, Ws, {6: (0, 4), 3: (3, 1), 2: (3, 8),
+                                     4: (6, 0), 1: (9, 10)})
+        return probs, bm, mask, n_obs, 5, ({6: 5, 3: 6, 2: 7, 4: 8, 1: 9},
+                                           10)
+    if case == "short_mask":
+        # ids 1-3 of K = 32: the absent rows 4.. would score ~0.95 for
+        # global 9 off the background's votes and outbid 1 (~0.93), were
+        # they allowed to claim; 2 and 3 (~0.86) do not outbid 1
+        mask = _assoc_blobs(Hs, Ws, {1: (0, 0), 2: (0, 8), 3: (6, 4)})
+        probs[mask == 1, 9] = 0.5 * n_obs
+        probs[mask == 0, 9] = 0.05 * n_obs
+        bm[mask == 0, 9] = True
+        expected = {1: 9, 2: 12, 3: 13}
+        expected.update({m: m for m in range(4, ASSOC_K)})
+        return probs, bm, mask, n_obs, 12, (expected, 14)
+    raise KeyError(case)
+
+
+def assoc_frames(case, Hs=48, Ws=64):
+    """The calls of a case: ([(probs, box_mask, mask, n_obs), ...], the
+    first call's num_objs, ``expected`` of the last call or None). Each
+    later call takes the num_objs the one before returned."""
+    if isinstance(case, int):
+        probs, bm, mask, n_obs, num_objs = assoc_seeded(case, Hs=Hs, Ws=Ws)
+        return [(probs, bm, mask, n_obs)], num_objs, None
+    if case == "chained":
+        a, b = assoc_seeded(4, Hs=Hs, Ws=Ws), assoc_seeded(5, Hs=Hs, Ws=Ws)
+        return [a[:4], b[:4]], a[4], None
+    probs, bm, mask, n_obs, num_objs, expected = assoc_named(case, Hs, Ws)
+    return [(probs, bm, mask, n_obs)], num_objs, expected
+
+
 def seeded_poses(vol_start, vol_end, e_default):
     """Camera poses (extrinsic2init, float32 [4, 4]) that the main path does
     not reach: inside the volume, looking away from it, and grazing it so
@@ -290,10 +392,12 @@ class Recorder:
     device memory."""
 
     def __init__(self):
+        import slam_maskrcnn_tpu_torch.fusion.associate as assoc_mod
         import slam_maskrcnn_tpu_torch.ops.nms as nms_mod
         import slam_maskrcnn_tpu_torch.ops.roi_align as roi_mod
         self.seen = {}
         orig_nms, orig_roi = nms_mod._nms_cuda, roi_mod._roi_align_cuda
+        orig_claim = assoc_mod.claim_cuda
 
         def nms(boxes, scores, max_output, thr, sthr):
             key = ("nms", max_output, scores.shape[0])
@@ -309,7 +413,15 @@ class Recorder:
                                   boxes.clone(), pool, image_shape)
             return orig_roi(features, boxes, pool, image_shape)
 
+        def claim(*args):
+            key = ("associate", args[-1])           # the mask's pixels
+            if key not in self.seen:
+                self.seen[key] = tuple(a.clone() if hasattr(a, "clone")
+                                       else a for a in args)
+            return orig_claim(*args)
+
         nms_mod._nms_cuda, roi_mod._roi_align_cuda = nms, roi
+        assoc_mod.claim_cuda = claim
 
     def roi_inputs(self, pool, batch):
         """(features, boxes, pool, image_shape) of the first ROIAlign launch
@@ -413,7 +525,8 @@ def main_path(dev):
     log(f"[main] {N_FRAMES} frames in {wall:.3f} s = {fps:.2f} fps, peak "
         f"memory {peak:.2f} GiB, launches {launches}, misses {misses}")
     check(launches == {"nms": 2 * N_FRAMES, "roi_align": 2 * N_FRAMES,
-                       "fuse": N_FRAMES, "fuse_pair": 0, "nms_sorted": 0},
+                       "fuse": N_FRAMES, "fuse_pair": 0, "nms_sorted": 0,
+                       "associate": N_FRAMES},
           f"launch counts {launches}")
     check(mask_g.shape == (H, W) and mask_g.dtype == torch.uint8, "mask_g")
     check(state.n_obs == N_FRAMES + 1 and misses == 0, "n_obs / misses")
@@ -471,9 +584,10 @@ def chunk_path(dev, model, state, staged, K4, dist):
         f"memory {peak:.2f} GiB, launches {launches}, misses {n_miss}")
     # one batched detect: one NMS launch for the proposals and one for the
     # detections of all frames, one ROIAlign launch per head for all
-    # frames; one paired fuse per two frames
+    # frames; one paired fuse per two frames; one association a frame
     check(launches == {"nms": 2, "roi_align": 2, "fuse": 0,
-                       "fuse_pair": N_CHUNK // 2, "nms_sorted": 0},
+                       "fuse_pair": N_CHUNK // 2, "nms_sorted": 0,
+                       "associate": N_CHUNK},
           f"chunk launch counts {launches}")
     check(state.n_obs == n_obs0 + N_CHUNK and n_miss == 0,
           f"chunk n_obs {state.n_obs} / misses {n_miss}")
@@ -1037,7 +1151,55 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
     log(f"[fuse_pair] kernel {t_pair:.3f} ms (again {t_pair_b:.3f}), two "
         f"single launches {t_two:.3f} ms, plain {t_pp:.3f} ms, bound "
         f"{bms:.5f} ms ({by})")
+
+    rows["associate"] = associate_check(dev, rec, cfg)
     return rows
+
+
+def associate_check(dev, rec, cfg):
+    """Phase 4's K5 row: the association's claim after the f32 score,
+    kernel against plain on the same scores (the main path's, the depth
+    probe at stride 2, and every case of ``assoc_frames`` at the splat
+    probe's H x W), then both timed on the main path's."""
+    import torch
+    from slam_maskrcnn_tpu_torch.fusion import associate as asc
+    from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
+    step_p = (H // cfg.probe_stride) * (W // cfg.probe_stride)
+    scored = [("step frame", rec.seen[("associate", step_p)])]
+    small = FusionConfig(vol_dim=(8, 8, 32))
+    for case in ASSOC_CASES:
+        calls, num, _ = assoc_frames(case, H, W)
+        probs, bm, mask, n_obs = calls[0]
+        sc = asc.association_scores(*(torch.from_numpy(a).to(dev)
+                                      for a in (probs, bm, mask)),
+                                    n_obs, small)
+        scored.append((f"case {case!r}", (*sc, torch.tensor(
+            num, dtype=torch.int32, device=dev), small.prior_mrcnn_err_rate,
+            H * W)))
+    for name, args in scored:
+        rk, nk = asc.claim_cuda(*args)
+        rp, n_p = asc.claim_plain(*args)
+        check(torch.equal(rk, rp) and torch.equal(nk, n_p),
+              f"associate {name}: kernel != plain ({rk.tolist()} / "
+              f"{rp.tolist()})")
+        log(f"[associate] {name} (P={args[-1]}): relabel {rk.tolist()}, "
+            f"num_objs {int(nk)} -- equal")
+    args = scored[0][1]
+    K = args[0].shape[0]
+    t_k = device_ms(lambda: asc.claim_cuda(*args))
+    t_w = cuda_time_ms(lambda: asc.claim_cuda(*args), 20)
+    t_p = cuda_time_ms(lambda: asc.claim_plain(*args), 5)
+    # bytes: prob (K^2 f32), m_valid, npix, first_idx (1 + 4 + 8 B an id)
+    # and num_objs in, relabel (8 B an id) and num_objs out; operations:
+    # K^2 comparisons each for the row maxima, the owners and the ranks
+    bms, by = bound_ms(K * K * 4 + K * 21 + 8, 3 * K * K)
+    log(f"[associate] K={K}: kernel {t_k:.4f} ms (device; {t_w:.4f} "
+        f"through the wrapper), plain {t_p:.3f} ms, bound {bms:.6f} ms "
+        f"({by})")
+    return dict(name="associate", route="cuda",
+                source="slam_maskrcnn_tpu_torch/csrc/associate.cu",
+                replaces=None, max_abs_err=0.0, ms=t_k, plain_ms=t_p,
+                bound_ms=bms, bound_by=by, library_ms=None, wrapper_ms=t_w)
 
 
 def stage2_phase(dev):
@@ -3600,14 +3762,15 @@ def main() -> int:
     # in that path's run.
     by_path = {"step": launches, "paired_chunk": c_launches, **p_paths,
                "train": t_launches, **s_paths, **sh_paths, **v_paths}
-    on_path = {"step": ("fuse", "nms", "roi_align"),
-               "paired_chunk": ("fuse_pair", "nms", "roi_align"),
+    on_path = {"step": ("associate", "fuse", "nms", "roi_align"),
+               "paired_chunk": ("associate", "fuse_pair", "nms",
+                                "roi_align"),
                "detect": ("nms", "roi_align"),
                "stage1_jpeg": ("nms", "roi_align"),
                "mask_process": ("nms", "roi_align"),
-               "fusion_demo": ("fuse",),
-               "live_device": ("fuse", "nms", "roi_align"),
-               "live_host": ("fuse", "nms", "roi_align"),
+               "fusion_demo": ("associate", "fuse"),
+               "live_device": ("associate", "fuse", "nms", "roi_align"),
+               "live_host": ("associate", "fuse", "nms", "roi_align"),
                "train": ("nms",),
                "nucleus_train": ("nms",),
                "nucleus_detect": ("nms", "roi_align"),
@@ -3647,7 +3810,8 @@ def main() -> int:
     log(f"[total] {time.time() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": [rows[k] for k in (
-        "fuse", "fuse_pair", "nms", "nms_sorted", "roi_align")]}))
+        "fuse", "fuse_pair", "nms", "nms_sorted", "roi_align",
+        "associate")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

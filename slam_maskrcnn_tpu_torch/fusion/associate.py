@@ -10,17 +10,24 @@ src/SfM_CUDA/tsdf.cu:304-416). For each current mask id m and global id n:
 with the pixel counts alongside; prob = exp(score / count). The best n
 per m is accepted iff prob > 3 * prior, claimed greedily 1-1 in ascending
 m with best-prob replacement; unmatched ids take fresh global ids in
-raster order of first occurrence. Everything stays on the device: the
-claim loop is K small tensor steps with no host sync. The host waits once,
-to upload the relabel table's bin 0.
+raster order of first occurrence.
+
+The f32 score (the logs, three products, exp) and the per-id pixel counts
+and first pixels are plain PyTorch on either device. What follows them is
+only comparisons and integer steps: on a CUDA tensor it is one launch of
+``csrc/associate.cu`` with no host sync; on a CPU tensor it is
+``claim_plain``, the same steps as K small tensor operations.
 """
 
 from __future__ import annotations
 
 import torch
 
+from slam_maskrcnn_tpu_torch import kernels
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
 from slam_maskrcnn_tpu_torch.utils.profiling import sync
+
+MAX_K = 1024                 # one thread an id, one block (csrc/associate.cu)
 
 
 def associate_instances(probs: torch.Tensor, box_mask: torch.Tensor,
@@ -29,6 +36,19 @@ def associate_instances(probs: torch.Tensor, box_mask: torch.Tensor,
     """probs f32 [H, W, K] raw histogram counts; box_mask bool [H, W, K];
     mask [H, W] this frame's label image; n_obs frames fused so far;
     num_objs i32 [] tensor. Returns (relabel i64 [K], new num_objs i32 [])."""
+    prob, m_valid, npix, first_idx = association_scores(
+        probs, box_mask, mask, n_obs, cfg)
+    claim = claim_cuda if prob.is_cuda else claim_plain
+    return claim(prob, m_valid, npix, first_idx, num_objs,
+                 cfg.prior_mrcnn_err_rate, mask.numel())
+
+
+def association_scores(probs: torch.Tensor, box_mask: torch.Tensor,
+                       mask: torch.Tensor, n_obs: int, cfg: FusionConfig):
+    """The f32 part of the association: prob f32 [m, n], m_valid bool [K]
+    (the rows that may claim), npix f32 [K] (pixels of each id) and
+    first_idx i64 [K] (each id's first pixel in raster order, P if
+    absent)."""
     K = cfg.max_objects
     prior = cfg.prior_mrcnn_err_rate
     H, W = mask.shape
@@ -57,6 +77,21 @@ def associate_instances(probs: torch.Tensor, box_mask: torch.Tensor,
     prob = torch.where((cnts > 0) & m_valid[:, None] & n_valid[None, :],
                        torch.exp(score / cnts.clamp_min(1.0)),
                        torch.zeros_like(score))
+    first_idx = torch.full((K,), P, dtype=torch.int64, device=dev)
+    first_idx = first_idx.scatter_reduce(
+        0, m_flat, torch.arange(P, device=dev), reduce="amin")
+    return prob, m_valid, npix, first_idx
+
+
+def claim_plain(prob: torch.Tensor, m_valid: torch.Tensor,
+                npix: torch.Tensor, first_idx: torch.Tensor,
+                num_objs: torch.Tensor, prior: float, P: int):
+    """Plain PyTorch version of the association kernel: from
+    ``association_scores``' outputs to (relabel i64 [K], new num_objs
+    i32 []). K small tensor steps on any device; the CPU's path."""
+    K = prob.shape[0]
+    dev = prob.device
+    m_ids = torch.arange(K, device=dev)
     best_p = prob.max(dim=1).values
     best_n = torch.argmax(prob, dim=1)          # first max wins ties
     accepted = m_valid & (best_p > 3.0 * prior)  # tsdf.cu:349
@@ -77,9 +112,6 @@ def associate_instances(probs: torch.Tensor, box_mask: torch.Tensor,
                       torch.full_like(m_ids, -1))
 
     # fresh ids for present-but-unmatched ids, raster order of first pixel
-    first_idx = torch.full((K,), P, dtype=torch.int64, device=dev)
-    first_idx = first_idx.scatter_reduce(
-        0, m_flat, torch.arange(P, device=dev), reduce="amin")
     present = (npix > 0) & (m_ids >= 1)
     needs_new = present & (rev < 0)
     order_key = torch.where(needs_new, first_idx, P + m_ids)
@@ -89,6 +121,38 @@ def associate_instances(probs: torch.Tensor, box_mask: torch.Tensor,
     relabel = torch.where(rev >= 0, rev, torch.where(needs_new, fresh, m_ids))
     with sync("associate.relabel0"):        # a host scalar's upload
         relabel[0] = 0
+    return relabel, new_num_objs
+
+
+def claim_cuda(prob: torch.Tensor, m_valid: torch.Tensor,
+               npix: torch.Tensor, first_idx: torch.Tensor,
+               num_objs: torch.Tensor, prior: float, P: int):
+    """``claim_plain`` as one launch of csrc/associate.cu on prob's CUDA
+    device: no host sync, nothing read back."""
+    K = prob.shape[0]
+    if K > MAX_K:
+        raise ValueError(f"association kernel takes at most {MAX_K} ids, "
+                         f"got {K}")
+    dev = prob.device
+    args = (prob, m_valid, npix, first_idx, num_objs.to(dev, torch.int32))
+    want = ((torch.float32, K * K), (torch.bool, K), (torch.float32, K),
+            (torch.int64, K), (torch.int32, 1))
+    if not prob.is_cuda or any(t.dtype != d or t.numel() != n
+                               or t.device != dev
+                               for t, (d, n) in zip(args, want)):
+        raise ValueError("association kernel takes prob f32 [K, K], m_valid "
+                         "bool, npix f32, first_idx i64 [K] and num_objs "
+                         "i32 [] on one CUDA device")
+    prob, m_valid, npix, first_idx, num_objs = (t.contiguous() for t in args)
+    relabel = torch.empty(K, dtype=torch.int64, device=dev)
+    new_num_objs = torch.empty((), dtype=torch.int32, device=dev)
+    fn = kernels.lib("associate").associate_cuda
+    kernels.launches.add("associate")
+    err = fn(kernels.ptr(prob), kernels.ptr(m_valid), kernels.ptr(npix),
+             kernels.ptr(first_idx), kernels.ptr(num_objs),
+             float(3.0 * prior), int(P), K, kernels.ptr(relabel),
+             kernels.ptr(new_num_objs), kernels.stream_ptr(dev))
+    kernels.check(err, "association kernel")
     return relabel, new_num_objs
 
 

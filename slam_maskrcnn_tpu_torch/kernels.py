@@ -29,17 +29,21 @@ from slam_maskrcnn_tpu_torch.utils import profiling
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("fuse", "nms", "nms_sorted", "roi_align")
+SOURCES = ("associate", "fuse", "nms", "nms_sorted", "roi_align")
 # the kernels that have a wrapper and a launch count of their own
 # (csrc/fuse.cu holds two)
-KERNELS = ("fuse", "fuse_pair", "nms", "nms_sorted", "roi_align")
+KERNELS = ("associate", "fuse", "fuse_pair", "nms", "nms_sorted",
+           "roi_align")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 # argument types of each library's entry points (pointers and the stream
 # as c_void_p: a bare Python int would be cut to 32 bits)
 _SIGNATURES = {
+    "associate": {"associate_cuda": [_P, _P, _P, _P, _P, _F, _L, _I, _P, _P,
+                                     _P]},
     "fuse": {"fuse_frame_cuda": [_P, _P, _P, _P, _I, _I, _I, _I,
                                  _P, _P, _P, _I, _I, _P, _P, _P, _I, _P],
              "fuse_frames2_cuda": [_P, _P, _P, _P, _I, _I, _I, _I,

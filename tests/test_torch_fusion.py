@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ASSOC_CASES, assoc_frames
 from slam_maskrcnn_tpu.data.synthetic import hard_scene, hard_sequence
 from slam_maskrcnn_tpu.fusion import FusionConfig as JFusionConfig
 from slam_maskrcnn_tpu.fusion.associate import (
@@ -30,41 +31,35 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _assoc_inputs(seed, K=32, Hs=48, Ws=64):
-    """A label image of a few blobs and histogram votes that partly agree
-    with it (some ids match a global id, some are new)."""
-    rng = np.random.default_rng(seed)
-    mask = np.zeros((Hs, Ws), np.uint8)
-    n_ids = int(rng.integers(3, 7))
-    for i in range(1, n_ids + 1):
-        y, x = rng.integers(0, Hs - 12), rng.integers(0, Ws - 16)
-        mask[y:y + 12, x:x + 16] = i
-    n_obs = int(rng.integers(2, 6))
-    probs = rng.integers(0, 2, (Hs, Ws, K)).astype(np.float32)
-    for i in range(1, n_ids + 1):
-        if rng.uniform() < 0.6:                        # matches global id g
-            g = int(rng.integers(1, 10))
-            probs[mask == i, g] += n_obs
-    return probs, probs > 0.3, mask, n_obs, int(rng.integers(2, 10))
-
-
-@pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_associate_and_relabel_match_jax(seed):
-    probs, bm, mask, n_obs, num_objs = _assoc_inputs(seed)
+@pytest.mark.parametrize("case", ASSOC_CASES)
+def test_associate_and_relabel_match_jax(case):
+    """The seeded frames and the named cases (chip_smoke.py
+    ``assoc_frames``): relabel and num_objs equal to the JAX package's, call
+    after call with num_objs chained, and the named cases' expected global
+    ids."""
+    calls, num_objs, expected = assoc_frames(case)
     jcfg = JFusionConfig(vol_dim=(8, 8, 32))
     tcfg = FusionConfig(vol_dim=(8, 8, 32))
-    jr, jn = j_assoc(jnp.asarray(probs), jnp.asarray(bm), jnp.asarray(mask),
-                     jnp.asarray(n_obs, jnp.int32),
-                     jnp.asarray(num_objs, jnp.int32), jcfg)
-    tr, tn = t_assoc(torch.from_numpy(probs), torch.from_numpy(bm),
-                     torch.from_numpy(mask), n_obs,
-                     torch.tensor(num_objs, dtype=torch.int32), tcfg)
-    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
-    assert int(tn) == int(jn)
-    assert int(jn) > num_objs or (np.asarray(jr)[1:7] != np.arange(1, 7)).any()
-    np.testing.assert_array_equal(
-        t_relabel(torch.from_numpy(mask), tr).numpy(),
-        np.asarray(j_relabel(jnp.asarray(mask), jr)))
+    jn = jnp.asarray(num_objs, jnp.int32)
+    tn = torch.tensor(num_objs, dtype=torch.int32)
+    for probs, bm, mask, n_obs in calls:
+        num_in = int(jn)
+        jr, jn = j_assoc(jnp.asarray(probs), jnp.asarray(bm),
+                         jnp.asarray(mask), jnp.asarray(n_obs, jnp.int32),
+                         jn, jcfg)
+        tr, tn = t_assoc(torch.from_numpy(probs), torch.from_numpy(bm),
+                         torch.from_numpy(mask), n_obs, tn, tcfg)
+        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+        assert int(tn) == int(jn)
+        assert int(jn) > num_in or \
+            (np.asarray(jr)[1:7] != np.arange(1, 7)).any()
+        np.testing.assert_array_equal(
+            t_relabel(torch.from_numpy(mask), tr).numpy(),
+            np.asarray(j_relabel(jnp.asarray(mask), jr)))
+    if expected is not None:
+        ids, num_after = expected
+        assert {m: int(tr[m]) for m in ids} == ids
+        assert int(tn) == num_after
 
 
 def test_semantic_fusion_matches_jax():

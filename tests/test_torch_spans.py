@@ -286,8 +286,8 @@ def test_launch_counter_view():
     launches.add("nms")
     launches.add("nms")
     launches.add("fuse_pair")
-    assert launches.counts == {"fuse": 0, "fuse_pair": 1, "nms": 2,
-                               "nms_sorted": 0, "roi_align": 0}
+    assert launches.counts == {"associate": 0, "fuse": 0, "fuse_pair": 1,
+                               "nms": 2, "nms_sorted": 0, "roi_align": 0}
     assert profiling.counters("launch.")["launch.nms"] == 2
     with pytest.raises(KeyError):
         launches.add("no_such_kernel")
