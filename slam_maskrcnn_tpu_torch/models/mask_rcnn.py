@@ -41,6 +41,7 @@ from slam_maskrcnn_tpu_torch.models.heads import (ConvTranspose, Dense,
                                                   FPNClassifier, MaskHead)
 from slam_maskrcnn_tpu_torch.models.proposal import generate_proposals
 from slam_maskrcnn_tpu_torch.models.rpn import RPNHead
+from slam_maskrcnn_tpu_torch.models.trunk_graph import TrunkGraph
 from slam_maskrcnn_tpu_torch.ops.resize import resize_linear
 from slam_maskrcnn_tpu_torch.ops.roi_align import (pyramid_roi_align,
                                                    pyramid_roi_align_train)
@@ -70,7 +71,9 @@ class MaskRCNNModule(nn.Module):
     class-selected masks [B, D, 28, 28] uint8, plus the proposals and RPN
     outputs; ``train_forward`` the head outputs and sampled targets the
     losses take. BatchNorm uses batch statistics only while the module is
-    in train mode (TRAIN_BN)."""
+    in train mode (TRAIN_BN). At batch 1 on the card, in eval mode with
+    grad off, ``forward`` replays the trunk (backbone, FPN, RPN head) as
+    one CUDA graph (models/trunk_graph.py), bit-equal to the eager trunk."""
 
     def __init__(self, num_classes: int, backbone: str = "resnet101",
                  image_shape=(1024, 1024), pool_size: int = 7,
@@ -102,6 +105,8 @@ class MaskRCNNModule(nn.Module):
         self.fpn_classifier = FPNClassifier(num_classes, pool_size, fc_size,
                                             top_down, dtype)
         self.fpn_mask = MaskHead(num_classes, top_down, dtype)
+        # the batch-1 trunk's CUDA graphs (models/trunk_graph.py)
+        self._trunk_graph = TrunkGraph()
 
     def features(self, images):
         """images [B, H, W, 3] -> (P2..P6), NCHW in channels-last memory."""
@@ -112,6 +117,21 @@ class MaskRCNNModule(nn.Module):
     def rpn_outputs(self, pyramid):
         outs = [self.rpn_model(p) for p in pyramid]
         return tuple(torch.cat([o[i] for o in outs], dim=1) for i in range(3))
+
+    def _trunk(self, images):
+        """images -> (P2, P3, P4, P5, P6, rpn_probs, rpn_bbox): the span
+        of the inference graph that ``TrunkGraph`` captures."""
+        pyramid = self.features(images)
+        _, rpn_probs, rpn_bbox = self.rpn_outputs(pyramid)
+        return pyramid + (rpn_probs, rpn_bbox)
+
+    def _graphable(self, images) -> bool:
+        """Whether ``_forward`` replays the trunk's CUDA graph: the images
+        on a device a graph can be captured on, a batch of 1, eval mode,
+        grad off (models/trunk_graph.py says why)."""
+        return (images.device.type in self._trunk_graph.DEVICES
+                and images.shape[0] == 1 and not self.training
+                and not torch.is_grad_enabled())
 
     def _roi_align(self, feats, boxes, pool):
         """PyramidROIAlign of the whole batch (one kernel launch) on NHWC
@@ -187,10 +207,17 @@ class MaskRCNNModule(nn.Module):
 
     def _forward(self, images, anchors, windows):
         with span("backbone"):
-            pyramid = self.features(images)
-        feats = pyramid[:4]
+            trunk = (self._trunk_graph.replay(self, images)
+                     if self._graphable(images) else None)
+            pyramid = self.features(images) if trunk is None else trunk[:5]
         with span("rpn"):
-            _, rpn_probs, rpn_bbox = self.rpn_outputs(pyramid)
+            if trunk is None:
+                _, rpn_probs, rpn_bbox = self.rpn_outputs(pyramid)
+            else:
+                # copies: these leave the call, and the next replay
+                # overwrites the graph's outputs
+                rpn_probs, rpn_bbox = trunk[5].clone(), trunk[6].clone()
+        feats = pyramid[:4]
         with span("proposals"):
             proposals, _ = generate_proposals(
                 rpn_probs, rpn_bbox, anchors, self.proposal_count,
