@@ -10,19 +10,18 @@
    -> label -> depth probe -> associate -> fuse, render mode "none") at
    full width: ResNet-101 FPN Mask R-CNN with 81 classes and seeded random
    weights, rect molding to 768x1024, a 512^3 volume with a K=32 u16
-   histogram, 480x640 RGB-D frames. Prints per-stage milliseconds (CUDA
-   events), frames per second, peak memory, and each kernel's launches,
-   which must be 2 (NMS), 2 (ROIAlign), 1 (fuse) and 1 (association) per
-   frame.
+   histogram, 480x640 RGB-D frames. Checks each kernel's launches, which
+   must be 2 (NMS), 2 (ROIAlign), 1 (fuse) and 1 (association) per frame,
+   the state and the misses.
 3. Main path, chunk form: NorthStar.run_chunk_paired over 16 frames with
    the in-loop render (mode "instance", candidates refreshed every 4
    frames) on the same model and volume: one batched detect (2 NMS and 2
    ROIAlign launches for the 16 frames), 8 launches of the paired fuse
-   kernel, 16 of the association kernel, 16 renders. Prints the same
-   metrics with the candidate refresh and the render as stages, checks
-   the launch counts, the state, the misses and a color-mode view of the
-   final volume, and holds run_chunk_paired against run_chunk_batched at
-   64^3.
+   kernel, 16 of the association kernel, 16 renders. Checks the launch
+   counts, the state, the misses and a color-mode view of the final
+   volume, and holds run_chunk_paired against run_chunk_batched at 64^3.
+   The benchmark's cells (h100bench/) time both forms; this script does
+   not.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (inputs captured from the main path, plus seeded
    inputs where the main path's are degenerate) and times both; the NMS
@@ -88,6 +87,11 @@ import sys
 import time
 
 import numpy as np
+
+from slam_maskrcnn_tpu_torch.testing import (ASSOC_CASES, assoc_frames,
+                                             match_detections,
+                                             nms_edge_cases, seeded_poses,
+                                             write_tum)
 
 H, W = 480, 640
 VOL = (512, 512, 512)
@@ -173,223 +177,13 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def match_detections(rois_a, cls_a, sc_a, rois_b, cls_b, sc_b,
-                     iou_thr=0.9):
-    """Greedy same-class box matching of detection set a against b (as
-    tools/parity_gate.py holds the TPU's detections to the CPU's): each of
-    a's boxes takes the unused b box of its class with the highest IoU
-    above ``iou_thr``. Returns (matched, mean |score a - score b|)."""
-    used, mads = set(), []
-    for i in range(len(rois_a)):
-        best, best_iou = -1, iou_thr
-        for j in range(len(rois_b)):
-            if j in used or cls_a[i] != cls_b[j]:
-                continue
-            ya1, xa1, ya2, xa2 = (float(v) for v in rois_a[i])
-            yb1, xb1, yb2, xb2 = (float(v) for v in rois_b[j])
-            inter = (max(0.0, min(ya2, yb2) - max(ya1, yb1))
-                     * max(0.0, min(xa2, xb2) - max(xa1, xb1)))
-            union = ((ya2 - ya1) * (xa2 - xa1) + (yb2 - yb1) * (xb2 - xb1)
-                     - inter)
-            iou = inter / union if union > 0 else 0.0
-            if iou > best_iou:
-                best, best_iou = j, iou
-        if best >= 0:
-            used.add(best)
-            mads.append(abs(float(sc_a[i]) - float(sc_b[best])))
-    return len(mads), float(np.mean(mads)) if mads else 0.0
-
-
-def nms_edge_cases():
-    """Seeded edge cases of greedy NMS, numpy only: a list of (name, boxes
-    f32 [B, n, 4], scores f32 [B, n], max_output, iou_threshold,
-    score_threshold). The argmax kernel is held to its plain version on
-    them on the card, and the plain version to the JAX package on the CPU
-    (tests/test_torch_ops.py)."""
-    rng = np.random.default_rng(20)
-    ninf = float("-inf")
-
-    def rand(n, batch=1):
-        yx = rng.uniform(0.0, 0.9, (batch, n, 2))
-        hw = rng.uniform(0.01, 0.3, (batch, n, 2))
-        return (np.concatenate([yx, yx + hw], -1).astype(np.float32),
-                rng.uniform(0, 1, (batch, n)).astype(np.float32))
-
-    cases = []
-    for n, cap in ((1, 4), (31, 8), (33, 8), (1025, 12), (6000, 12),
-                   (8192, 12)):
-        cases.append((f"n={n}", *rand(n), cap, 0.5, ninf))
-    cases.append(("max_output above n", *rand(20), 32, 0.7, ninf))
-    b, s = rand(50)
-    cases.append(("all scores under the threshold", b, s, 8, 0.5, 2.0))
-    b, s = rand(40)
-    cases.append(("all boxes the same", np.broadcast_to(
-        b[:, :1], b.shape).copy(), s, 8, 0.5, ninf))
-    b, s = rand(200)
-    cases.append(("exact score ties", b, np.full_like(s, 0.5), 16, 0.3,
-                  ninf))
-    b, s = rand(1500)
-    s[0, rng.choice(1500, 700, replace=False)] = 0.25
-    s[0, 1024:1040] = s[0, :16]          # ties across a thread's two boxes
-    cases.append(("tied blocks, 1500 boxes", b, s, 24, 0.6, ninf))
-    # pairs (A, B) apart from one another, A scored above B, with
-    # inter / union placed on the threshold and a few ulp to either side:
-    # A = [y, 0, y + 1, 1] and B = [y, 0, y + 1, x] overlap by exactly x of
-    # a union (1 + x) - x
-    for t in (0.5, 0.25, 0.7, 0.3):
-        t32 = np.float32(t)
-        xs = [t32]
-        for _ in range(4):
-            xs = [np.nextafter(xs[0], np.float32(0))] + xs \
-                + [np.nextafter(xs[-1], np.float32(1))]
-        boxes, scores = [], []
-        for k, x in enumerate(xs):
-            off = np.float32(2.0 * k)
-            boxes += [[off, 0, off + 1, 1], [off, 0, off + 1, x]]
-            scores += [1.0 - 0.01 * k, 0.5 - 0.01 * k]
-        # thin boxes at other scales, where the union is not 1
-        for k, (h, w) in enumerate(((3.0, 0.125), (0.3, 7.0), (1e-3, 1e-3))):
-            off = np.float32(100.0 + 10.0 * k)
-            boxes += [[off, 0, off + h, w], [off, 0, off + h,
-                                             w * float(t32)]]
-            scores += [0.4 - 0.01 * k, 0.2 - 0.01 * k]
-        cases.append((f"IoUs on the threshold {t}",
-                      np.asarray(boxes, np.float32)[None],
-                      np.asarray(scores, np.float32)[None], len(boxes),
-                      float(t), ninf))
-    cases.append(("batch of 4", *rand(300, batch=4), 20, 0.4, 0.1))
-    return cases
-
-
-# the association's cases (the CPU tests against the JAX package, the card
-# tests and phase 4): seeds, then the named cases; "chained" is two calls,
-# num_objs passed on
-ASSOC_CASES = (0, 1, 2, 3, "contested", "tied", "unmatched", "short_mask",
-               "chained")
-ASSOC_K = 32
-
-
-def assoc_seeded(seed, Hs=48, Ws=64):
-    """A label image of a few blobs and histogram votes that partly agree
-    with it (some ids match a global id, some are new)."""
-    rng = np.random.default_rng(seed)
-    bh, bw = Hs // 4, Ws // 4
-    mask = np.zeros((Hs, Ws), np.uint8)
-    n_ids = int(rng.integers(3, 7))
-    for i in range(1, n_ids + 1):
-        y, x = rng.integers(0, Hs - bh), rng.integers(0, Ws - bw)
-        mask[y:y + bh, x:x + bw] = i
-    n_obs = int(rng.integers(2, 6))
-    probs = rng.integers(0, 2, (Hs, Ws, ASSOC_K)).astype(np.float32)
-    for i in range(1, n_ids + 1):
-        if rng.uniform() < 0.6:                        # matches global id g
-            g = int(rng.integers(1, 10))
-            probs[mask == i, g] += n_obs
-    return probs, probs > 0.3, mask, n_obs, int(rng.integers(2, 10))
-
-
-def _assoc_blobs(Hs, Ws, where):
-    """A label image with id i on the block ``where[i]`` = (row, col) in
-    units of a twelfth of the height and a sixteenth of the width, each
-    block 2 x 3 units."""
-    mask = np.zeros((Hs, Ws), np.uint8)
-    uy, ux = Hs // 12, Ws // 16
-    for i, (r, c) in where.items():
-        mask[r * uy:(r + 2) * uy, c * ux:(c + 3) * ux] = i
-    return mask
-
-
-def assoc_named(case, Hs=48, Ws=64):
-    """(probs, box_mask, mask, n_obs, num_objs, expected) of a named case;
-    ``expected`` is ({id: the global id it must get}, the new num_objs).
-    Votes without a box mask score exactly exp(log(share)); every area
-    scales with the image, so the expectations hold at any size."""
-    n_obs = 4
-    probs = np.zeros((Hs, Ws, ASSOC_K), np.float32)
-    bm = np.zeros((Hs, Ws, ASSOC_K), bool)
-    if case == "contested":
-        # 1, 3 and 5 all vote for global 7: 3 outbids 1, 5 does not outbid 3
-        mask = _assoc_blobs(Hs, Ws, {1: (0, 0), 3: (0, 5), 5: (5, 0)})
-        for i, share in ((1, 0.6), (3, 1.0), (5, 0.8)):
-            probs[mask == i, 7] = share * n_obs
-        return probs, bm, mask, n_obs, 9, ({3: 7, 1: 9, 5: 10}, 11)
-    if case == "tied":
-        # 2 and 4 score exactly 1.0 for global 5: the earlier m keeps it;
-        # 1 scores exactly 1.0 for globals 3 and 6: the first n is its best
-        mask = _assoc_blobs(Hs, Ws, {2: (0, 0), 4: (5, 8), 1: (8, 3)})
-        probs[mask == 2, 5] = n_obs
-        probs[mask == 4, 5] = n_obs
-        probs[mask == 1, 3] = n_obs
-        probs[mask == 1, 6] = n_obs
-        return probs, bm, mask, n_obs, 8, ({2: 5, 4: 8, 1: 3}, 9)
-    if case == "unmatched":
-        # no votes: every present id is fresh, in raster order of its first
-        # pixel (6, 3, 2, 4, 1), not in id order
-        mask = _assoc_blobs(Hs, Ws, {6: (0, 4), 3: (3, 1), 2: (3, 8),
-                                     4: (6, 0), 1: (9, 10)})
-        return probs, bm, mask, n_obs, 5, ({6: 5, 3: 6, 2: 7, 4: 8, 1: 9},
-                                           10)
-    if case == "short_mask":
-        # ids 1-3 of K = 32: the absent rows 4.. would score ~0.95 for
-        # global 9 off the background's votes and outbid 1 (~0.93), were
-        # they allowed to claim; 2 and 3 (~0.86) do not outbid 1
-        mask = _assoc_blobs(Hs, Ws, {1: (0, 0), 2: (0, 8), 3: (6, 4)})
-        probs[mask == 1, 9] = 0.5 * n_obs
-        probs[mask == 0, 9] = 0.05 * n_obs
-        bm[mask == 0, 9] = True
-        expected = {1: 9, 2: 12, 3: 13}
-        expected.update({m: m for m in range(4, ASSOC_K)})
-        return probs, bm, mask, n_obs, 12, (expected, 14)
-    raise KeyError(case)
-
-
-def assoc_frames(case, Hs=48, Ws=64):
-    """The calls of a case: ([(probs, box_mask, mask, n_obs), ...], the
-    first call's num_objs, ``expected`` of the last call or None). Each
-    later call takes the num_objs the one before returned."""
-    if isinstance(case, int):
-        probs, bm, mask, n_obs, num_objs = assoc_seeded(case, Hs=Hs, Ws=Ws)
-        return [(probs, bm, mask, n_obs)], num_objs, None
-    if case == "chained":
-        a, b = assoc_seeded(4, Hs=Hs, Ws=Ws), assoc_seeded(5, Hs=Hs, Ws=Ws)
-        return [a[:4], b[:4]], a[4], None
-    probs, bm, mask, n_obs, num_objs, expected = assoc_named(case, Hs, Ws)
-    return [(probs, bm, mask, n_obs)], num_objs, expected
-
-
-def seeded_poses(vol_start, vol_end, e_default):
-    """Camera poses (extrinsic2init, float32 [4, 4]) that the main path does
-    not reach: inside the volume, looking away from it, and grazing it so
-    that the frustum's faces cut through bricks at an angle."""
-    centre = 0.5 * (np.asarray(vol_start, np.float64)
-                    + np.asarray(vol_end, np.float64))
-
-    def rot_y(deg):
-        a = np.deg2rad(deg)
-        R = np.eye(4)
-        R[0, 0], R[0, 2], R[2, 0], R[2, 2] = (np.cos(a), np.sin(a),
-                                              -np.sin(a), np.cos(a))
-        return R
-
-    inside = np.eye(4)
-    inside[:3, 3] = -centre
-    to_c, back = np.eye(4), np.eye(4)
-    to_c[:3, 3] = -centre
-    back[:3, 3] = centre + np.array([0.1, 0.0, -0.2])
-    poses = {"inside": inside,
-             "away": rot_y(180.0) @ np.asarray(e_default, np.float64),
-             "grazing": back @ rot_y(55.0) @ to_c}
-    return {k: v.astype(np.float32) for k, v in poses.items()}
-
-
 class Recorder:
     """Keeps a copy of the first inputs each kernel wrapper sees per
     shape key on the main path (for the kernel-vs-plain phase). The NMS
     and ROIAlign keys hold the batch size: the per-frame form launches
     them at batch 1, the chunk form at the chunk's batch. The ROIAlign
     pyramids wait in host memory (``roi_inputs`` brings them back), so
-    that the chunk's (0.5 GB a head) do not count in the main path's peak
-    device memory."""
+    that the chunk's (0.5 GB a head) do not hold card memory meanwhile."""
 
     def __init__(self):
         import slam_maskrcnn_tpu_torch.fusion.associate as assoc_mod
@@ -431,31 +225,9 @@ class Recorder:
         return tuple(f.to(boxes.device) for f in feats), boxes, p, shape
 
 
-class StageClock:
-    """CUDA events at the stage marks of a step or a chunk; ``ms()`` sums
-    the time between consecutive marks under the later mark's name."""
-
-    def __init__(self):
-        import torch
-        self._event = lambda: torch.cuda.Event(enable_timing=True)
-        self.events = [("start", self._event())]
-        self.events[0][1].record()
-
-    def mark(self, name):
-        ev = self._event()
-        ev.record()
-        self.events.append((name, ev))
-
-    def ms(self):
-        out = {}
-        for (_, a), (name, b) in zip(self.events, self.events[1:]):
-            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
-        return out
-
-
 def main_path(dev):
     """Phase 2: the full-width north-star step. Returns (state, frames,
-    stage ms, fps, peak GiB, launches, config objects)."""
+    launches, config objects)."""
     import torch
     from slam_maskrcnn_tpu_torch import kernels
     from slam_maskrcnn_tpu_torch.data.synthetic import (default_scene,
@@ -479,7 +251,6 @@ def main_path(dev):
 
     K4 = make_intrinsic(520.9, 521.0, 325.1, 249.7)
     cfg = FusionConfig(vol_dim=VOL, probe_mode="depth", probe_stride=2)
-    t0 = time.time()
     model = MaskRCNN("inference", NSConfig(), device=dev)
     model.init_params(0)
     frames = make_sequence(default_scene(), K4, H, W, n_frames=4)
@@ -492,38 +263,22 @@ def main_path(dev):
               for fr in frames[1:]]
     ns = NorthStar(model, K4, cfg, H, W, render_mode="none")
     dist = float(frames[0]["mean_depth"])
-    log(f"[main] setup {time.time() - t0:.1f} s (model "
-        f"{sum(p.numel() for p in model.module.parameters()) / 1e6:.1f} M "
-        f"params, volume {VOL})")
+    n_params = sum(p.numel() for p in model.module.parameters())
+    log(f"[main] model {n_params / 1e6:.1f} M params, volume {VOL}")
 
     rec = Recorder()
     # warm-up frame (first fuse: no association), outside the counted run
     state, _, mask_g, _ = ns.step(state, *staged[0], 0.0, dist)
     torch.cuda.synchronize()
 
-    stages = ("detect", "label", "associate", "fuse")
-    ms = {s: 0.0 for s in stages}
-    torch.cuda.reset_peak_memory_stats()
     kernels.launches.reset()
-    t0 = time.time()
     misses = 0
     for i in range(N_FRAMES):
-        clock = StageClock()
         state, _, mask_g, miss = ns.step(state, *staged[(i + 1) % 3],
-                                         0.01 * i, dist, mark=clock.mark)
-        torch.cuda.synchronize()
+                                         0.01 * i, dist)
         misses += int(miss)
-        for name, t in clock.ms().items():
-            ms[name] += t / N_FRAMES
-    wall = time.time() - t0
     launches = dict(kernels.launches.counts)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    fps = N_FRAMES / wall
-
-    log("[main] per-stage ms: " + ", ".join(f"{k} {v:.3f}"
-                                            for k, v in ms.items()))
-    log(f"[main] {N_FRAMES} frames in {wall:.3f} s = {fps:.2f} fps, peak "
-        f"memory {peak:.2f} GiB, launches {launches}, misses {misses}")
+    log(f"[main] {N_FRAMES} frames: launches {launches}, misses {misses}")
     check(launches == {"nms": 2 * N_FRAMES, "roi_align": 2 * N_FRAMES,
                        "fuse": N_FRAMES, "fuse_pair": 0, "nms_sorted": 0,
                        "associate": N_FRAMES},
@@ -534,16 +289,13 @@ def main_path(dev):
     fused = int((state.weight > 0).sum())
     check(fused > 1_000_000, f"fused voxels {fused}")
     log(f"[main] fused voxels {fused}, num_objs {int(state.num_objs)}")
-    profile_run(lambda: [ns.step(state, *staged[i % 3], 0.0, dist)
-                         for i in range(2)], 2, "step")
-    return (state, frames, staged, ms, fps, peak, launches, rec, cfg, K4,
-            model, dist)
+    return state, frames, staged, launches, rec, cfg, K4, model, dist
 
 
 def chunk_path(dev, model, state, staged, K4, dist):
     """Phase 3: the paired chunk with the in-loop render at full width, on
-    the per-frame phase's model and (warmed) volume. Returns (state, stage
-    ms per frame, fps, peak GiB, launches, cfg)."""
+    the per-frame phase's model and (warmed) volume. Returns (state,
+    launches, cfg)."""
     import torch
     from slam_maskrcnn_tpu_torch import kernels
     from slam_maskrcnn_tpu_torch.fusion.fuse import init_state
@@ -565,23 +317,12 @@ def chunk_path(dev, model, state, staged, K4, dist):
     state, *_ = ns.run_chunk_paired(state, depths, colors, es, angles, dist)
     torch.cuda.synchronize()
     n_obs0 = state.n_obs
-    torch.cuda.reset_peak_memory_stats()
     kernels.launches.reset()
-    clock = StageClock()
-    t0 = time.time()
     state, renders, masks_g, misses = ns.run_chunk_paired(
-        state, depths, colors, es, angles, dist, mark=clock.mark)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+        state, depths, colors, es, angles, dist)
     launches = dict(kernels.launches.counts)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    fps = N_CHUNK / wall
-    ms = {k: v / N_CHUNK for k, v in clock.ms().items()}
     n_miss = int(misses.sum())
-    log("[chunk] per-stage ms per frame: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
-    log(f"[chunk] {N_CHUNK} frames in {wall:.3f} s = {fps:.2f} fps, peak "
-        f"memory {peak:.2f} GiB, launches {launches}, misses {n_miss}")
+    log(f"[chunk] {N_CHUNK} frames: launches {launches}, misses {n_miss}")
     # one batched detect: one NMS launch for the proposals and one for the
     # detections of all frames, one ROIAlign launch per head for all
     # frames; one paired fuse per two frames; one association a frame
@@ -627,8 +368,6 @@ def chunk_path(dev, model, state, staged, K4, dist):
                                                cfg, mode="color")),
           "OrbitRenderer.render != splat_render_orbit")
     del orb, view
-    profile_run(lambda: ns.run_chunk_paired(state, depths, colors, es, angles,
-                                            dist), N_CHUNK, "chunk frame")
 
     # paired against batched on clones of one warmed 64^3 volume: state
     # and masks equal, pair-second renders equal (as the CPU test states)
@@ -648,7 +387,7 @@ def chunk_path(dev, model, state, staged, K4, dist):
           and bool(rp[1].any()), "64^3 pair-second renders")
     log("[chunk] 64^3: run_chunk_paired == run_chunk_batched (state, masks, "
         "pair-second renders)")
-    return state, ms, fps, peak, launches, cfg
+    return state, launches, cfg
 
 
 def profile_run(fn, n_frames: int, unit: str):
@@ -1419,32 +1158,6 @@ class FirstCalls:
             setattr(mod, attr, orig)
 
 
-def write_tum(root, frames, masks=True, base_ts=1311868164.0):
-    """A TUM RGB-D sequence on disk with the port's PNG codec: rgb/ (the
-    BGR frames), depth/ (u16), mask/ (the ground-truth labels) and
-    groundtruth.txt (camera-to-world poses; the synthetic extrinsics are
-    translations)."""
-    import os
-    from slam_maskrcnn_tpu_torch.data.png import write_png
-    for d in ("rgb", "depth") + (("mask",) if masks else ()):
-        os.makedirs(os.path.join(root, d), exist_ok=True)
-    lines = []
-    for i, fr in enumerate(frames):
-        name = f"{base_ts + 0.05 * i:.6f}.png"
-        write_png(os.path.join(root, "rgb", name), fr["color"])
-        write_png(os.path.join(root, "depth", name), fr["depth"])
-        if masks:
-            write_png(os.path.join(root, "mask", name), fr["mask"])
-        E = np.asarray(fr["extrinsic"], np.float64)
-        check(np.array_equal(E[:3, :3], np.eye(3)), "translation-only poses")
-        t = [repr(float(-v)) for v in E[:3, 3]]
-        lines.append(f"{base_ts + 0.05 * i:.6f} {' '.join(t)} 0.0 0.0 0.0 "
-                     "1.0")
-    with open(os.path.join(root, "groundtruth.txt"), "w") as f:
-        f.write("# timestamp tx ty tz qx qy qz qw\n" + "\n".join(lines)
-                + "\n")
-
-
 def pipeline_phase(dev):
     """Phase 6: the trained detector and the two-stage pipeline through
     the user's entry points: the 20 scenes, stage 1 on JPEG frames (path
@@ -1609,11 +1322,9 @@ def pipeline_phase(dev):
     seq_s1 = os.path.join(work, "seq_stage1")
     write_tum(seq_gt, frames)
     write_tum(seq_s1, frames, masks=False)
-    t0 = time.time()
     n = counted("mask_process", lambda: mask_process.main(
         ["--rgb", os.path.join(seq_s1, "rgb"),
          "--out", os.path.join(seq_s1, "mask"), "--device", dev]))
-    t_s1 = time.time() - t0
     written = sorted(os.listdir(os.path.join(seq_s1, "mask")))
     check(n == PIPE_FRAMES and len(written) == PIPE_FRAMES,
           f"stage 1 wrote {written}")
@@ -1621,31 +1332,20 @@ def pipeline_phase(dev):
         m = read_png(os.path.join(seq_s1, "mask", f))
         check(m.dtype == np.uint8 and m.shape == (H, W), f"mask {f}")
     log(f"[pipeline] stage 1 (mask_process, COCO ResNet-101 at 1024^2, "
-        f"seed-0 weights): {n} u8 mask PNGs in {t_s1:.2f} s "
-        f"({t_s1 * 1e3 / n:.1f} ms per frame incl. PNG I/O), launches "
+        f"seed-0 weights): {n} u8 mask PNGs, launches "
         f"{by_path['mask_process']}")
-    summary["stage1_ms_per_frame"] = t_s1 * 1e3 / n
 
     cfg = FusionConfig(vol_dim=(PIPE_VOL,) * 3)
     orbit_dir = os.path.join(work, "orbit")
-    t0 = time.time()
     fusion, views = counted("fusion_demo", lambda: fusion_demo.run(
         seq_gt, vol_dim=PIPE_VOL, backend="pallas", device=dev,
         intrinsics=PIPE_K,
         orbit_frames=4, save_dir=orbit_dir, verbose=False))
-    t_demo = time.time() - t0
-    # the same frames from memory: the fusion alone, timed
+    # the same frames from memory
     mem = SemanticFusion(K4, cfg, backend="pallas", device=dev)
-    mem.parse_frame(frames[0]["depth"], frames[0]["color"],
-                    frames[0]["mask"], frames[0]["extrinsic"],
-                    frames[0]["mean_depth"])
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for fr in frames[1:]:
+    for fr in frames:
         mem.parse_frame(fr["depth"], fr["color"], fr["mask"],
                         fr["extrinsic"], fr["mean_depth"])
-    torch.cuda.synchronize()
-    fps_fuse = n_fused / (time.time() - t0)
     for f in ("diff", "color", "weight", "hist"):
         check(torch.equal(getattr(fusion.state, f), getattr(mem.state, f)),
               f"fusion_demo from disk != SemanticFusion from memory: {f}")
@@ -1659,12 +1359,10 @@ def pipeline_phase(dev):
         check(np.array_equal(read_png(os.path.join(orbit_dir, f)),
                              v[:, :, ::-1]), f"orbit PNG {f}")
     log(f"[pipeline] fusion_demo {PIPE_VOL}^3: {PIPE_FRAMES} frames "
-        f"({n_fused} fused) + 4 orbit views in {t_demo:.2f} s incl. PNG I/O, "
-        f"state bit-equal to SemanticFusion fed from memory, which fuses "
-        f"{fps_fuse:.2f} frames/s; instance views light "
+        f"({n_fused} fused) + 4 orbit views, state bit-equal to "
+        f"SemanticFusion fed from memory; instance views light "
         f"{[round(x, 4) for x in lit]} of the pixels; launches "
         f"{by_path['fusion_demo']}")
-    summary.update(fusion_demo_s=t_demo, fusion_fps=fps_fuse)
 
     # the volume checkpoint: save, load, bit-equal; one more frame fused
     # into both stays equal
@@ -3734,10 +3432,9 @@ def main() -> int:
                 f"spilled, {stack} bytes of stack, {smem} bytes of static "
                 f"shared memory")
 
-    (state, frames, staged, ms, fps, peak, launches, rec, cfg, K4, model,
-     dist) = main_path(dev)
-    state, c_ms, c_fps, c_peak, c_launches, _ = chunk_path(
-        dev, model, state, staged, K4, dist)
+    state, frames, staged, launches, rec, cfg, K4, model, dist = main_path(
+        dev)
+    state, c_launches, _ = chunk_path(dev, model, state, staged, K4, dist)
     rows = kernel_phase(dev, state, staged, rec, cfg, K4)
     del state, model
     torch.cuda.empty_cache()
@@ -3790,11 +3487,8 @@ def main() -> int:
                                        for p, c in by_path.items()}
         rows[k]["launches"] = sum(rows[k]["launches_by_path"].values())
     log(json.dumps({"north_star": {
-        "step": {"stage_ms": ms, "fps": fps, "peak_gib": peak,
-                 "frames": N_FRAMES, "launches": launches},
-        "paired_chunk": {"stage_ms_per_frame": c_ms, "fps": c_fps,
-                         "peak_gib": c_peak, "frames": N_CHUNK,
-                         "launches": c_launches},
+        "step": {"frames": N_FRAMES, "launches": launches},
+        "paired_chunk": {"frames": N_CHUNK, "launches": c_launches},
         "card": smi}}))
     log(json.dumps({"pipeline": dict(p_summary, launches=p_paths,
                                      card=smi)}))

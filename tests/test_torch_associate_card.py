@@ -1,9 +1,9 @@
 """The association kernel (csrc/associate.cu) against its plain version
 (``claim_plain``) on the card, on the same f32 scores: the seeded frames
-and the named cases of chip_smoke.py ``assoc_frames``, at a small size
-and at the cells' probe shapes (the depth probe at stride 2 on 480x640:
-240x320; the splat probe: 480x640). relabel and num_objs bit-equal, num_objs chained
-through both versions; one launch a call through ``associate_instances``,
+and the named cases of ``slam_maskrcnn_tpu_torch.testing.assoc_frames``, at
+a small size and at the cells' probe shapes (the depth probe at stride 2 on
+480x640: 240x320; the splat probe: 480x640). relabel and num_objs
+bit-equal, num_objs chained through both versions; one launch a call through ``associate_instances``,
 which syncs nothing (``set_sync_debug_mode("error")``).
 
 Each test takes the ``card`` fixture and skips without a CUDA card. This
@@ -16,10 +16,10 @@ the suite's conftest:
 import pytest
 import torch
 
-from chip_smoke import ASSOC_CASES, assoc_frames
 from slam_maskrcnn_tpu_torch import kernels
 from slam_maskrcnn_tpu_torch.fusion import associate as assoc
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
+from slam_maskrcnn_tpu_torch.testing import ASSOC_CASES, assoc_frames
 
 torch.set_num_threads(2)
 

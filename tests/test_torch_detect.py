@@ -17,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import match_detections
 from slam_maskrcnn_tpu.models import MaskRCNN as JMaskRCNN
 from slam_maskrcnn_tpu.models.anchors import get_anchors as j_anchors
 from slam_maskrcnn_tpu.models.import_h5 import load_h5_weights as j_load
@@ -31,6 +30,7 @@ from slam_maskrcnn_tpu_torch.models.mask_rcnn import (MaskRCNN,
 from slam_maskrcnn_tpu_torch.ops.resize import resize_linear
 from slam_maskrcnn_tpu_torch.samples.train_shapes import (
     SCENES, InferenceShapesConfig, detect_scenes)
+from slam_maskrcnn_tpu_torch.testing import match_detections
 
 # the suite runs several workers on few cores: keep torch's thread pool
 # small, or its spinning threads starve one another

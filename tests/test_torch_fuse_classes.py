@@ -9,15 +9,14 @@ brick is updated with dn == 1 and is not gated; a class-aware update written
 here (skip: nothing, free: closed form, full: per voxel in numpy float32)
 equals the dense update bit for bit in diff, weight, color and histogram,
 for one frame and for a pair. Poses: camera outside and inside the volume,
-looking away, grazing (chip_smoke.seeded_poses, which the kernel is held to
-on the card); depth with holes; a wall nearer than the volume and one behind
-it; volumes whose sizes no brick divides."""
+looking away, grazing (slam_maskrcnn_tpu_torch.testing.seeded_poses, which
+the kernel is held to on the card); depth with holes; a wall nearer than the
+volume and one behind it; volumes whose sizes no brick divides."""
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import seeded_poses
 from slam_maskrcnn_tpu_torch.data.synthetic import (default_scene,
                                                     make_sequence)
 from slam_maskrcnn_tpu_torch.fusion.fuse import (BRICK, FREE, FULL, SKIP,
@@ -29,6 +28,7 @@ from slam_maskrcnn_tpu_torch.fusion.fuse import (BRICK, FREE, FULL, SKIP,
                                                  fuse_params,
                                                  init_from_first_frame)
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig, make_intrinsic
+from slam_maskrcnn_tpu_torch.testing import seeded_poses
 
 # the suite runs several workers on few cores: keep torch's thread pool
 # small, or its spinning threads starve one another

@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ASSOC_CASES, assoc_frames
 from slam_maskrcnn_tpu.data.synthetic import hard_scene, hard_sequence
 from slam_maskrcnn_tpu.fusion import FusionConfig as JFusionConfig
 from slam_maskrcnn_tpu.fusion.associate import (
@@ -22,6 +21,7 @@ from slam_maskrcnn_tpu_torch.fusion.associate import (
     apply_relabel as t_relabel, associate_instances as t_assoc)
 from slam_maskrcnn_tpu_torch.fusion.pipeline import SemanticFusion
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig
+from slam_maskrcnn_tpu_torch.testing import ASSOC_CASES, assoc_frames
 from test_torch_fuse import K4, H, W, _ambiguous_voxels
 
 # the suite runs several workers on few cores: keep torch's thread pool
@@ -33,10 +33,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.mark.parametrize("case", ASSOC_CASES)
 def test_associate_and_relabel_match_jax(case):
-    """The seeded frames and the named cases (chip_smoke.py
-    ``assoc_frames``): relabel and num_objs equal to the JAX package's, call
-    after call with num_objs chained, and the named cases' expected global
-    ids."""
+    """The seeded frames and the named cases
+    (``slam_maskrcnn_tpu_torch.testing.assoc_frames``): relabel and
+    num_objs equal to the JAX package's, call after call with num_objs
+    chained, and the named cases' expected global ids."""
     calls, num_objs, expected = assoc_frames(case)
     jcfg = JFusionConfig(vol_dim=(8, 8, 32))
     tcfg = FusionConfig(vol_dim=(8, 8, 32))
@@ -98,9 +98,9 @@ def test_semantic_fusion_matches_jax():
 
 
 def test_port_imports_no_jax_and_defaults_to_cuda():
-    """With jax blocked, the port and chip_smoke.py import; no module of the
-    JAX package is loaded; entry points without device= raise when CUDA is
-    absent."""
+    """With jax blocked, the port, its shared test cases and chip_smoke.py
+    import; no module of the JAX package is loaded; entry points without
+    device= raise when CUDA is absent."""
     code = r"""
 import sys
 sys.modules["jax"] = None
@@ -109,6 +109,7 @@ import numpy as np
 import torch
 import chip_smoke
 import slam_maskrcnn_tpu_torch
+import slam_maskrcnn_tpu_torch.testing
 from slam_maskrcnn_tpu_torch.fusion.pipeline import SemanticFusion
 from slam_maskrcnn_tpu_torch.fusion.state import FusionConfig, make_intrinsic
 from slam_maskrcnn_tpu_torch.models.config import Config

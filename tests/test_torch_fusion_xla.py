@@ -308,8 +308,8 @@ def test_fusion_demo_xla_backend(tmp_path):
     """fusion_demo --backend xla: the dense path reads a TUM sequence from
     disk into a u32 volume equal to SemanticFusion(backend="xla") fed from
     memory, and its viewer ray-marches the dense volume."""
-    from chip_smoke import write_tum
     from slam_maskrcnn_tpu_torch.samples import fusion_demo
+    from slam_maskrcnn_tpu_torch.testing import write_tum
 
     frames = make_sequence(default_scene(), K4, H, W, n_frames=4)
     write_tum(str(tmp_path / "seq"), frames)

@@ -10,7 +10,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import nms_edge_cases
 from slam_maskrcnn_tpu.ops import boxes as jboxes
 from slam_maskrcnn_tpu.ops.nms import non_max_suppression as j_nms
 from slam_maskrcnn_tpu.ops.pallas.nms_kernel import (
@@ -23,6 +22,7 @@ from slam_maskrcnn_tpu_torch.ops.nms import (
     non_max_suppression as t_nms)
 from slam_maskrcnn_tpu_torch.ops.roi_align import pyramid_roi_align as t_roi
 from slam_maskrcnn_tpu_torch.samples.north_star import resize_bilinear
+from slam_maskrcnn_tpu_torch.testing import nms_edge_cases
 
 
 # the suite runs several workers on few cores: keep torch's thread pool
@@ -84,10 +84,11 @@ _EDGE_CASES = nms_edge_cases()
                          ids=[c[0].replace(" ", "_") for c in _EDGE_CASES])
 def test_nms_edge_cases_match_jax(case):
     """The seeded edge cases that the argmax kernel is held to on the card
-    (chip_smoke.py: sizes 1 to 8192, max_output above n, nothing over the
-    score threshold, identical boxes, exact score ties, IoUs exactly on the
-    threshold and a few ulp beside it, a batch): here the plain version
-    against the JAX package, indices and validity equal in every image."""
+    (``slam_maskrcnn_tpu_torch.testing.nms_edge_cases``: sizes 1 to 8192,
+    max_output above n, nothing over the score threshold, identical boxes,
+    exact score ties, IoUs exactly on the threshold and a few ulp beside
+    it, a batch): here the plain version against the JAX package, indices
+    and validity equal in every image."""
     name, boxes, scores, cap, thr, sthr = case
     ti, tv = t_nms(torch.from_numpy(boxes), torch.from_numpy(scores), cap,
                    thr, sthr)

@@ -483,6 +483,7 @@ for m in ("jax", "flax", "cv2", "h5py", "PIL", "matplotlib"):
     sys.modules[m] = None
 import numpy as np
 import chip_smoke
+import slam_maskrcnn_tpu_torch.testing
 from slam_maskrcnn_tpu_torch.data import augment as A
 from slam_maskrcnn_tpu_torch.eval import rle
 from slam_maskrcnn_tpu_torch.eval.cocoeval import COCOevalLite

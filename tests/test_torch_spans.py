@@ -9,7 +9,9 @@
   port names, one call id, parents that hold their children, and the
   chunk's frame indices.
 * Each span's host stamps fall on its own ``record_function`` event of the
-  profiler's trace, within 50 us at both ends.
+  profiler's trace: inside the event's interval (the span enters the event
+  before it stamps its start and stamps its end before it leaves), and a
+  call's spans sit within 50 us of their events' ends at the median.
 * ``Trainer.steps`` records one ``train_step`` root a step with its
   children (the batch, the upload, the training forward and its
   sub-layers, the loss, the backward pass, the optimizer) and marks
@@ -274,15 +276,18 @@ def test_stamps_map_onto_record_function_events(runs, entry):
     events = {}
     for e in prof.events():
         events.setdefault(e.name, []).append(e)
-    seen = {}
+    seen, lead, lag = {}, [], []
     for s in ses.spans:
         k = seen.get(s.name, 0)
         seen[s.name] = k + 1
         e = sorted(events[s.name], key=lambda e: e.time_range.start)[k]
-        assert abs((s.start_ns - base) * 1e-3 - e.time_range.start) < 50, \
-            s.name
-        assert abs((s.end_ns - base) * 1e-3 - e.time_range.end) < 50, \
-            s.name
+        lead.append((s.start_ns - base) * 1e-3 - e.time_range.start)
+        lag.append(e.time_range.end - (s.end_ns - base) * 1e-3)
+        # the clocks' conversion may round by a microsecond either way
+        assert lead[-1] > -1 and lag[-1] > -1, (s.name, lead[-1], lag[-1])
+    # a thread descheduled between the event and the stamp moves one span
+    # off by its pause, not the median
+    assert np.median(lead) < 50 and np.median(lag) < 50, (lead, lag)
 
 
 @pytest.mark.parametrize("entry", ["step", "chunk"])

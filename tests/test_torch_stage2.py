@@ -298,6 +298,7 @@ import sys
 for m in ("jax", "flax", "cv2", "h5py", "PIL"):
     sys.modules[m] = None
 import chip_smoke
+import slam_maskrcnn_tpu_torch.testing
 import slam_maskrcnn_tpu_torch.data.png, slam_maskrcnn_tpu_torch.data.tum
 import slam_maskrcnn_tpu_torch.data.shapes, slam_maskrcnn_tpu_torch.eval.metrics
 import slam_maskrcnn_tpu_torch.fusion.checkpoint

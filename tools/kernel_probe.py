@@ -2,9 +2,7 @@
 """Where the redesigned kernels of the PyTorch port spend their time, on
 one NVIDIA GPU.
 
-    python3 -m slam_maskrcnn_tpu_torch.samples.kernel_probe
-
-(from the repository's root, where chip_smoke.py lies)
+    python3 tools/kernel_probe.py
 
 chip_smoke.py times each kernel through its Python wrapper on the main
 path's inputs. This probe runs inputs chosen to isolate one part of a
@@ -32,16 +30,22 @@ that):
   and pool 14 (32 rois), batch 1 and 16, against its byte bound.
 
 The sorted NMS and ROIAlign times are device times: the launches are
-queued behind a spin kernel (chip_smoke.device_ms).
+queued behind a spin kernel (chip_smoke.device_ms). The timing helpers
+and the smoke's sizes live in chip_smoke.py, which this tool imports.
 
 Prints the card's name and power limit, then one line per measurement.
 """
 
 import ctypes
+import os
 import subprocess
 import sys
 
 import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+sys.path.insert(0, ROOT)
 
 
 def main() -> int:
@@ -55,6 +59,7 @@ def main() -> int:
     from slam_maskrcnn_tpu_torch.fusion.state import (FusionConfig,
                                                       make_intrinsic)
     from slam_maskrcnn_tpu_torch.ops import nms as nm
+    from slam_maskrcnn_tpu_torch.testing import seeded_poses
 
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
@@ -81,7 +86,7 @@ def main() -> int:
            fz.fuse_params(vol, e, K4, cfg)) for f, e in zip(frames[1:], e2i)]
     for f in fr:
         fz.fuse_frame_plain(vol, *f)
-    poses = cs.seeded_poses(vol.vol_start, vol.vol_end, e2i[0])
+    poses = seeded_poses(vol.vol_start, vol.vol_end, e2i[0])
     with_pose = lambda name: fr[0][:3] + (fz.fuse_params(vol, poses[name],
                                                          K4, cfg),)
     with_depth = lambda raw: (torch.full_like(fr[0][0], raw),) + fr[0][1:]

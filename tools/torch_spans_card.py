@@ -20,8 +20,11 @@ imported), then:
    the syncs the profiler saw (``cudaStreamSynchronize``,
    ``cudaDeviceSynchronize``, ``cudaMemcpy``) against the program's
    ``sync.*`` counters plus the harness's one ``synchronize()`` a call,
-   and the device's idle time a frame by the innermost span that holds
-   each gap (every gap of the stretch, through ``idle_gaps``);
+   the launch calls a frame the profiler saw (``LAUNCH_CALLS``: torch's
+   and the hand kernels' ``cudaLaunchKernel``, a graph's
+   ``cudaGraphLaunch``), and the device's idle time a frame by the
+   innermost span that holds each gap (every gap of the stretch, through
+   ``idle_gaps``);
 4. gaps (cells named by ``--gaps``): ``trace_calls`` calls under
    ``utils.profiling.trace`` (CPU and CUDA activity), and the ten longest
    idle gaps of the device named by ``idle_gaps``.
@@ -54,6 +57,8 @@ CELLS = ("ns512.step", "ref256.stage2", "ns512.chunk16", "ref256.stage1",
 PKG = os.sep + "slam_maskrcnn_tpu_torch" + os.sep
 OUT = os.path.join(ROOT, "build")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
 
 
 def build(cell: str, seed: int = 7):
@@ -169,10 +174,14 @@ def stretch(drv, spec) -> dict:
     prof.stop()
     ses = profiling.last_session()
     roots = [s for s in ses.spans if s.parent is None]
-    seen = {}
+    seen, launched = {}, {}
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in SYNC_CALLS:
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in SYNC_CALLS:
             seen[e.name] = seen.get(e.name, 0) + 1
+        elif e.name in LAUNCH_CALLS:
+            launched[e.name] = launched.get(e.name, 0) + 1
     syncs = {k: v for k, v in ses.counters.items() if k.startswith("sync.")}
     idle = {}
     for name, secs, _ in profiling.idle_gaps(prof, ses, sys.maxsize):
@@ -188,6 +197,7 @@ def stretch(drv, spec) -> dict:
         calls_ids=len({s.call for s in ses.spans}),
         self_ms=self_ms(ses, frames),
         profiler_syncs=seen, program_syncs=sum(syncs.values()),
+        launches_a_frame={k: v / frames for k, v in sorted(launched.items())},
         harness_syncs=n,
         sync_sites={k: v / frames for k, v in sorted(syncs.items())},
         idle_ms=dict(sorted(idle.items(), key=lambda kv: -kv[1])))
