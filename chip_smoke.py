@@ -42,7 +42,10 @@
    association kernel is held against ``claim_plain`` on the same scores:
    the main path's (the depth probe at stride 2) and ``assoc_frames``'
    cases at the splat probe's 480x640; it is timed behind a spin kernel
-   too.
+   too. The RPN matching kernel (``rpn_targets_check``) is held against
+   ``rpn_match_plain`` and the host numpy matching on ``RPN_CASES``, on
+   random boxes over the 1024^2 anchors and on the training cell's
+   traffic, and timed at the cell's shape.
 5. Stage 2 with the synthetic ground-truth masks at 512^3 (association
    with several ids, then an instance render that must show both
    spheres), and the same at 64^3 on the CPU (plain versions) vs the GPU
@@ -88,9 +91,11 @@ import time
 
 import numpy as np
 
-from slam_maskrcnn_tpu_torch.testing import (ASSOC_CASES, assoc_frames,
-                                             match_detections,
-                                             nms_edge_cases, seeded_poses,
+from slam_maskrcnn_tpu_torch.testing import (ASSOC_CASES, RPN_CASES,
+                                             assoc_frames, match_detections,
+                                             molded_gt, nms_edge_cases,
+                                             rpn_anchors, rpn_case,
+                                             rpn_split, seeded_poses,
                                              write_tum)
 
 H, W = 480, 640
@@ -281,7 +286,7 @@ def main_path(dev):
     log(f"[main] {N_FRAMES} frames: launches {launches}, misses {misses}")
     check(launches == {"nms": 2 * N_FRAMES, "roi_align": 2 * N_FRAMES,
                        "fuse": N_FRAMES, "fuse_pair": 0, "nms_sorted": 0,
-                       "associate": N_FRAMES},
+                       "associate": N_FRAMES, "rpn_targets": 0},
           f"launch counts {launches}")
     check(mask_g.shape == (H, W) and mask_g.dtype == torch.uint8, "mask_g")
     check(state.n_obs == N_FRAMES + 1 and misses == 0, "n_obs / misses")
@@ -328,7 +333,7 @@ def chunk_path(dev, model, state, staged, K4, dist):
     # frames; one paired fuse per two frames; one association a frame
     check(launches == {"nms": 2, "roi_align": 2, "fuse": 0,
                        "fuse_pair": N_CHUNK // 2, "nms_sorted": 0,
-                       "associate": N_CHUNK},
+                       "associate": N_CHUNK, "rpn_targets": 0},
           f"chunk launch counts {launches}")
     check(state.n_obs == n_obs0 + N_CHUNK and n_miss == 0,
           f"chunk n_obs {state.n_obs} / misses {n_miss}")
@@ -892,6 +897,7 @@ def kernel_phase(dev, state, staged, rec, cfg, K4):
         f"{bms:.5f} ms ({by})")
 
     rows["associate"] = associate_check(dev, rec, cfg)
+    rows["rpn_targets"] = rpn_targets_check(dev)
     return rows
 
 
@@ -939,6 +945,112 @@ def associate_check(dev, rec, cfg):
                 source="slam_maskrcnn_tpu_torch/csrc/associate.cu",
                 replaces=None, max_abs_err=0.0, ms=t_k, plain_ms=t_p,
                 bound_ms=bms, bound_by=by, library_ms=None, wrapper_ms=t_w)
+
+
+def traffic_gt(dev, seed: int, frames: int):
+    """(class ids, f32 boxes) of ``frames`` orbit frames of the training
+    cell's traffic, spread over the orbit, molded to 1024^2 as the data
+    generator molds them (every other one flipped); and the cell's
+    config."""
+    import os
+    from h100bench.drivers import train as htrain
+    from slam_maskrcnn_tpu_torch.models.config import Config
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "h100bench", "workloads",
+                           "coco1024.train_all.json")) as f:
+        cell = json.load(f)
+    with open(os.path.join(here, "h100bench", "configs",
+                           cell["config"] + ".json")) as f:
+        config = json.load(f)
+    cfg = type("Cell", (Config,), {
+        k: (np.array(v) if isinstance(v, list) else v)
+        for k, v in config["detector"].items() if k != "IMAGE_SHAPE"})()
+    camera = config["camera"]
+    orb = htrain.orbit(cell, camera, seed)
+    n = cell["traffic"]["frames_per_orbit"]
+    out = []
+    for i, k in enumerate(range(0, n, n // frames)):
+        masks, ids = htrain.instances(orb, htrain.render(orb, camera, k,
+                                                         dev)[1])
+        out.append(molded_gt(masks, ids, cfg, flip=i % 2 == 1))
+    return out, cfg
+
+
+def rpn_targets_check(dev):
+    """Phase 4's K6 row: the RPN matching kernel (csrc/rpn_targets.cu)
+    against ``rpn_match_plain`` on the card, and its labels and best gt
+    against the host numpy matching (``_match_np``), on every case of
+    ``RPN_CASES``, on random boxes over the 1024^2 anchors (12, 100 and
+    300 gt) and on eight frames of the training cell's traffic; then, on
+    the first traffic frame (the cell's shape: 261,888 anchors), the
+    kernel timed behind a spin kernel, ``match_anchors`` (upload, launch,
+    read-back) and the plain version on the card, and the numpy matching
+    on the host."""
+    import torch
+    from slam_maskrcnn_tpu_torch.models import targets as tg
+
+    cases = []
+    for name in RPN_CASES:
+        anchors, ids, gt, _ = rpn_case(name)
+        g, crowd = rpn_split(ids, gt)
+        if len(g):
+            cases.append((name, anchors, g, crowd))
+    a1024 = rpn_anchors(1024)
+    rng = np.random.default_rng(21)
+    for n_gt in (12, 100, 300):
+        h, w = rng.integers(4, 400, (2, n_gt))
+        y1, x1 = rng.integers(-50, 1024 - h), rng.integers(-50, 1024 - w)
+        gt = np.stack([y1, x1, y1 + h, x1 + w], 1).astype(np.float32)
+        cases.append((f"random {n_gt} gt", a1024, gt[n_gt // 10:],
+                      gt[:n_gt // 10]))
+    traffic, cfg = traffic_gt(dev, 7, 8)
+    for k, (ids, gt) in enumerate(traffic):
+        cases.append((f"traffic frame {k}", a1024, *rpn_split(ids, gt)))
+    n_pos = []
+    for name, anchors, g, crowd in cases:
+        a = torch.from_numpy(anchors).to(dev)
+        boxes = torch.from_numpy(np.concatenate([g, crowd])).to(dev)
+        k_out = tg.rpn_match_cuda(a, boxes, len(g))
+        p_out = tg.rpn_match_plain(a, boxes, len(g))
+        want, arg = tg._match_np(anchors, g, crowd)
+        got = k_out.cpu().numpy()
+        check(torch.equal(k_out, p_out), f"rpn_targets {name}: kernel != "
+              f"plain at {(k_out != p_out).any(0).sum().item()} anchors")
+        check(np.array_equal(got[0], want) and np.array_equal(got[1], arg),
+              f"rpn_targets {name}: kernel != numpy")
+        n_pos.append(int((want == 1).sum()))
+    log(f"[rpn_targets] {len(cases)} cases (A up to {len(a1024)}, G up to "
+        f"300): labels and best gt equal to plain and to numpy; positives "
+        f"before the subsample {n_pos}")
+    g, crowd = rpn_split(*traffic[0])
+    G, C, A = len(g), len(crowd), len(a1024)
+    a = torch.from_numpy(a1024).to(dev)
+    boxes = torch.from_numpy(np.concatenate([g, crowd])).to(dev)
+    t_k = device_ms(lambda: tg.rpn_match_cuda(a, boxes, G))
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tg.match_anchors(a, g, crowd)
+    t_w = (time.perf_counter() - t0) * 1e3 / reps
+    t_p = cuda_time_ms(lambda: tg.rpn_match_plain(a, boxes, G), 5)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        tg._match_np(a1024, g, crowd)
+    t_np = (time.perf_counter() - t0) * 1e3 / 3
+    # bytes: the anchors (16 B each) and boxes in, two i32 rows out;
+    # operations: 13 a box pair (4 max / min, 2 differences, 2 clamps, the
+    # product, the sum, the difference, the max and the division), over
+    # every box in pass 1 and the gt again in pass 2
+    bms, by = bound_ms(A * 16 + (G + C) * 16 + A * 8, 13 * A * (2 * G + C))
+    log(f"[rpn_targets] A={A}, G={G}, C={C}: kernel {t_k:.4f} ms (device; "
+        f"{t_w:.4f} ms through match_anchors, upload and read-back "
+        f"included), plain {t_p:.3f} ms on the card, numpy {t_np:.1f} ms "
+        f"on the host, bound {bms:.6f} ms ({by})")
+    return dict(name="rpn_targets", route="cuda",
+                source="slam_maskrcnn_tpu_torch/csrc/rpn_targets.cu",
+                replaces=None, max_abs_err=0.0, ms=t_k, plain_ms=t_p,
+                bound_ms=bms, bound_by=by, library_ms=None, wrapper_ms=t_w,
+                numpy_ms=t_np, shape=dict(anchors=A, gt=G, crowd=C))
 
 
 def stage2_phase(dev):
@@ -2087,6 +2199,12 @@ def samples_phase(dev):
     bhist, out = counted("balloon", balloon_path)
     t_b = time.time() - t0
     check(np.isfinite(bhist).all(), f"balloon losses {bhist}")
+    # Trainer.train on one card matches each trained image's anchors there
+    check(by_path["balloon"]["rpn_targets"]
+          == BALLOON_STEPS * bcfg.BATCH_SIZE,
+          f"balloon: one RPN matching launch an image, "
+          f"{by_path['balloon']['rpn_targets']} for "
+          f"{BALLOON_STEPS * bcfg.BATCH_SIZE}")
     src = np.ascontiguousarray(read_png(splash_in)[:, :, ::-1])
     want = balloon.color_splash(src, made[0]["masks"])
     got = read_png(out)[:, :, ::-1]
@@ -3472,7 +3590,7 @@ def main() -> int:
                "nucleus_train": ("nms",),
                "nucleus_detect": ("nms", "roi_align"),
                "mini_coco": ("nms", "roi_align"),
-               "balloon": ("nms", "roi_align"),
+               "balloon": ("nms", "roi_align", "rpn_targets"),
                "tracker": ("nms", "roi_align"),
                "sharded_fuse": ("fuse",),
                "dp_train": ("nms",),
@@ -3505,7 +3623,7 @@ def main() -> int:
     log(smi)
     log(json.dumps({"kernels": [rows[k] for k in (
         "fuse", "fuse_pair", "nms", "nms_sorted", "roi_align",
-        "associate")]}))
+        "associate", "rpn_targets")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

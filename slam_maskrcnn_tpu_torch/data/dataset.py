@@ -29,7 +29,9 @@ import numpy as np
 import torch
 
 from slam_maskrcnn_tpu_torch.models.anchors import get_anchors
-from slam_maskrcnn_tpu_torch.models.targets import build_rpn_targets
+from slam_maskrcnn_tpu_torch.models.targets import (DeviceAnchors,
+                                                    build_rpn_targets)
+from slam_maskrcnn_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -252,14 +254,18 @@ def pad_to(arr, n, axis=0):
 
 
 def data_generator(dataset: Dataset, config, shuffle=True, augment=False,
-                   batch_size=None, seed=None, augmentation=None):
+                   batch_size=None, seed=None, augmentation=None,
+                   device=None):
     """Infinite batch generator (= model.data_generator,
     model.py:1635-1805). Yields dicts of fixed-shape numpy arrays:
     images, rpn_match [B,A], rpn_bbox [B,A,4] (anchor-aligned),
     gt_class_ids [B,G], gt_boxes [B,G,4] normalized, gt_masks [B,G,h,w],
     active_class_ids [B,C], windows [B,4] normalized. ``augmentation``:
     an Augmenter (data/augment.py), drawing from the generator's own
-    ``np.random.default_rng(seed)``."""
+    ``np.random.default_rng(seed)``. ``device``: where
+    ``build_rpn_targets`` matches anchors to gt (the anchors uploaded
+    once; on a card csrc/rpn_targets.cu, one launch an image); None keeps
+    the whole batch in numpy. The batches are the same either way."""
     batch_size = batch_size or config.BATCH_SIZE
     rng = np.random.default_rng(seed)
     anchors_norm = get_anchors(config, config.IMAGE_SHAPE)
@@ -267,6 +273,8 @@ def data_generator(dataset: Dataset, config, shuffle=True, augment=False,
     scale = np.array([H - 1, W - 1, H - 1, W - 1], np.float32)
     shift = np.array([0, 0, 1, 1], np.float32)
     anchors_px = anchors_norm * scale + shift
+    anchors = (anchors_px if device is None
+               else DeviceAnchors(anchors_px, device))
     G = config.MAX_GT_INSTANCES
     ids = np.copy(dataset.image_ids)
     error_count = 0
@@ -285,8 +293,10 @@ def data_generator(dataset: Dataset, config, shuffle=True, augment=False,
                                      augmentation=augmentation, rng=rng)
             if not np.any(gt_class_ids > 0):
                 continue
-            rpn_match, rpn_bbox = build_rpn_targets(
-                anchors_px, gt_class_ids, gt_boxes.astype(np.float32), config)
+            with span("rpn_targets"):
+                rpn_match, rpn_bbox = build_rpn_targets(
+                    anchors, gt_class_ids, gt_boxes.astype(np.float32),
+                    config)
 
             if batch is None:
                 A = anchors_px.shape[0]

@@ -29,11 +29,12 @@ from slam_maskrcnn_tpu_torch.utils import profiling
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("associate", "fuse", "nms", "nms_sorted", "roi_align")
+SOURCES = ("associate", "fuse", "nms", "nms_sorted", "roi_align",
+           "rpn_targets")
 # the kernels that have a wrapper and a launch count of their own
 # (csrc/fuse.cu holds two)
 KERNELS = ("associate", "fuse", "fuse_pair", "nms", "nms_sorted",
-           "roi_align")
+           "roi_align", "rpn_targets")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -55,6 +56,7 @@ _SIGNATURES = {
                    "nms_sorted_scan_cuda": [_I, _I, _P, _P, _P]},
     "roi_align": {"roi_align_cuda": [_I, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _F, _P, _P]},
+    "rpn_targets": {"rpn_match_cuda": [_P, _I, _P, _I, _I, _P, _P, _P]},
 }
 
 _lock = threading.Lock()

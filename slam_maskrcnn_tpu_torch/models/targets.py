@@ -2,10 +2,15 @@
 
 Port of slam_maskrcnn_tpu/models/targets.py:
 
-* ``build_rpn_targets``: host-side numpy, per image, in the data pipeline
+* ``build_rpn_targets``: per image, in the data pipeline
   (= ``Mask_RCNN/mrcnn/model.py:1450-1558``), a copy: anchor-aligned
   deltas (zeros at non-positives), positives and negatives subsampled with
-  numpy's global stream as the JAX package does.
+  numpy's global stream as the JAX package does. The JAX package matches
+  anchors to gt in host numpy (``_match_np`` here); given
+  ``DeviceAnchors``, the port matches them on their device
+  (``match_anchors``: one call of csrc/rpn_targets.cu on a card,
+  ``rpn_match_plain`` on the CPU) with the same labels, and keeps the
+  draws and the deltas on the host.
 * ``detection_targets``: on the device, static shapes, a batch at once
   (= ``DetectionTargetLayer``, ``model.py:491-682``; the JAX package's jnp
   function vmapped over images): IoU matching, 33%-positive subsampling,
@@ -23,15 +28,37 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam_maskrcnn_tpu_torch import kernels
 from slam_maskrcnn_tpu_torch.ops.boxes import (box_refinement,
                                                compute_iou_matrix)
 from slam_maskrcnn_tpu_torch.ops.roi_align import crop_and_resize
 from slam_maskrcnn_tpu_torch.utils.profiling import sync
 
 
-def build_rpn_targets(anchors: np.ndarray, gt_class_ids: np.ndarray,
-                      gt_boxes: np.ndarray, config) -> tuple[np.ndarray, np.ndarray]:
-    """Returns (rpn_match [A] in {-1, 0, 1}, rpn_bbox [A, 4] aligned)."""
+class DeviceAnchors:
+    """The f32 pixel anchors ``px`` [A, 4] and the same bits as a tensor
+    ``t`` on ``device`` (uploaded once). Given as ``build_rpn_targets``'
+    anchors, they move its matching of anchors to gt onto that device."""
+
+    def __init__(self, px: np.ndarray, device):
+        self.px = px
+        self.t = torch.from_numpy(px)
+        if torch.device(device).type != "cpu":
+            with sync("rpn.anchors"):
+                self.t = self.t.to(device)
+
+
+def build_rpn_targets(anchors, gt_class_ids: np.ndarray,
+                      gt_boxes: np.ndarray, config
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """Returns (rpn_match [A] in {-1, 0, 1}, rpn_bbox [A, 4] aligned).
+    ``anchors``: [A, 4] in numpy, or ``DeviceAnchors``, whose matching of
+    anchors to gt runs on their device (``match_anchors``: csrc/
+    rpn_targets.cu on a card, ``rpn_match_plain`` on the CPU) with the same
+    result; the subsample and the deltas stay here either way."""
+    on_device = anchors if isinstance(anchors, DeviceAnchors) else None
+    if on_device is not None:
+        anchors = on_device.px
     rpn_match = np.zeros(anchors.shape[0], np.int32)
     rpn_bbox = np.zeros((anchors.shape[0], 4), np.float32)
     if gt_boxes.shape[0] == 0:
@@ -40,26 +67,17 @@ def build_rpn_targets(anchors: np.ndarray, gt_class_ids: np.ndarray,
     # crowds (negative ids) don't count as gt; anchors overlapping a crowd
     # box are neutral (model.py:1472-1487)
     crowd_ix = np.where(gt_class_ids < 0)[0]
+    crowd_boxes = gt_boxes[crowd_ix]
     if crowd_ix.shape[0] > 0:
-        non_crowd_ix = np.where(gt_class_ids > 0)[0]
-        crowd_boxes = gt_boxes[crowd_ix]
-        gt_boxes = gt_boxes[non_crowd_ix]
-        crowd_overlaps = _overlaps_np(anchors, crowd_boxes)
-        no_crowd = crowd_overlaps.max(axis=1) < 0.001
-    else:
-        no_crowd = np.ones(anchors.shape[0], bool)
+        gt_boxes = gt_boxes[np.where(gt_class_ids > 0)[0]]
     if gt_boxes.shape[0] == 0:
         return rpn_match, rpn_bbox
-
-    overlaps = _overlaps_np(anchors, gt_boxes)
-    anchor_iou_argmax = overlaps.argmax(axis=1)
-    anchor_iou_max = overlaps[np.arange(len(anchors)), anchor_iou_argmax]
-    rpn_match[(anchor_iou_max < 0.3) & no_crowd] = -1
-    # best anchor per gt is positive regardless of IoU (incl. ties,
-    # model.py:1499-1502)
-    gt_iou_argmax = np.argwhere(overlaps == overlaps.max(axis=0))[:, 0]
-    rpn_match[gt_iou_argmax] = 1
-    rpn_match[anchor_iou_max >= 0.7] = 1
+    if on_device is None:
+        rpn_match, anchor_iou_argmax = _match_np(anchors, gt_boxes,
+                                                 crowd_boxes)
+    else:
+        rpn_match, anchor_iou_argmax = match_anchors(on_device.t, gt_boxes,
+                                                     crowd_boxes)
 
     # subsample (model.py:1507-1519)
     ids = np.where(rpn_match == 1)[0]
@@ -85,6 +103,89 @@ def build_rpn_targets(anchors: np.ndarray, gt_class_ids: np.ndarray,
                        np.log(gh / ah), np.log(gw / aw)]
         rpn_bbox[i] /= config.RPN_BBOX_STD_DEV
     return rpn_match, rpn_bbox
+
+
+def _match_np(anchors, gt_boxes, crowd_boxes):
+    """The labels before the subsample and each anchor's best gt
+    (model.py:1487-1504), in numpy."""
+    if crowd_boxes.shape[0] > 0:
+        no_crowd = _overlaps_np(anchors, crowd_boxes).max(axis=1) < 0.001
+    else:
+        no_crowd = np.ones(anchors.shape[0], bool)
+    overlaps = _overlaps_np(anchors, gt_boxes)
+    anchor_iou_argmax = overlaps.argmax(axis=1)
+    anchor_iou_max = overlaps[np.arange(len(anchors)), anchor_iou_argmax]
+    rpn_match = np.zeros(anchors.shape[0], np.int32)
+    rpn_match[(anchor_iou_max < 0.3) & no_crowd] = -1
+    # best anchor per gt is positive regardless of IoU (incl. ties,
+    # model.py:1499-1502)
+    gt_iou_argmax = np.argwhere(overlaps == overlaps.max(axis=0))[:, 0]
+    rpn_match[gt_iou_argmax] = 1
+    rpn_match[anchor_iou_max >= 0.7] = 1
+    return rpn_match, anchor_iou_argmax
+
+
+def match_anchors(anchors: torch.Tensor, gt_boxes: np.ndarray,
+                  crowd_boxes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``_match_np`` on ``anchors``' device: anchors f32 [A, 4] there, the
+    image's gt and crowd boxes f32 [G, 4], [C, 4] (G >= 1) on the host.
+    Returns (labels i32 [A], best gt i32 [A]) on the host. On a card the
+    boxes go up from pinned memory without a sync, and the two rows come
+    back in one read-back."""
+    boxes = torch.from_numpy(np.concatenate([gt_boxes, crowd_boxes]))
+    G = gt_boxes.shape[0]
+    if not anchors.is_cuda:
+        out = rpn_match_plain(anchors, boxes, G)
+    else:
+        boxes = boxes.pin_memory().to(anchors.device, non_blocking=True)
+        out = rpn_match_cuda(anchors, boxes, G)
+        with sync("rpn.labels"):
+            out = out.cpu()
+    out = out.numpy()
+    return out[0], out[1]
+
+
+def rpn_match_plain(anchors: torch.Tensor, boxes: torch.Tensor,
+                    G: int) -> torch.Tensor:
+    """Plain PyTorch version of the RPN matching kernel (csrc/
+    rpn_targets.cu) on any device: anchors f32 [A, 4], boxes f32 [G + C,
+    4] (the gt, then the crowd boxes). Returns i32 [2, A]: the labels
+    before the subsample, and each anchor's best gt (the first on ties)."""
+    iou = compute_iou_matrix(anchors, boxes)        # [A, G + C]
+    gt = iou[:, :G]
+    arg = torch.argmax(gt, dim=1)
+    best = torch.gather(gt, 1, arg[:, None])[:, 0]
+    if boxes.shape[0] > G:
+        no_crowd = iou[:, G:].max(dim=1).values < 0.001
+    else:
+        no_crowd = torch.ones_like(best, dtype=torch.bool)
+    tie = (gt == gt.max(dim=0).values[None, :]).any(dim=1)
+    label = torch.where((best >= 0.7) | tie, 1,
+                        torch.where((best < 0.3) & no_crowd, -1, 0))
+    return torch.stack([label, arg]).to(torch.int32)
+
+
+def rpn_match_cuda(anchors: torch.Tensor, boxes: torch.Tensor,
+                   G: int) -> torch.Tensor:
+    """``rpn_match_plain`` as two launches of csrc/rpn_targets.cu on the
+    anchors' card: no host sync, nothing read back."""
+    A, n = anchors.shape[0], boxes.shape[0]
+    dev = anchors.device
+    if (not anchors.is_cuda or boxes.device != dev
+            or anchors.dtype != torch.float32 or boxes.dtype != torch.float32
+            or anchors.shape != (A, 4) or boxes.shape != (n, 4)
+            or not 1 <= G <= n or A < 1):
+        raise ValueError("RPN matching kernel takes anchors f32 [A, 4] and "
+                         "boxes f32 [G + C, 4] (G >= 1) on one CUDA device")
+    anchors, boxes = anchors.contiguous(), boxes.contiguous()
+    out = torch.empty((2, A), dtype=torch.int32, device=dev)
+    colmax = torch.empty(G, dtype=torch.int32, device=dev)
+    fn = kernels.lib("rpn_targets").rpn_match_cuda
+    kernels.launches.add("rpn_targets")
+    err = fn(kernels.ptr(anchors), A, kernels.ptr(boxes), G, n - G,
+             kernels.ptr(out), kernels.ptr(colmax), kernels.stream_ptr(dev))
+    kernels.check(err, "RPN matching kernel")
+    return out
 
 
 def _overlaps_np(boxes1, boxes2):

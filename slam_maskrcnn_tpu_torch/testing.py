@@ -245,3 +245,161 @@ def write_tum(root, frames, masks=True, base_ts=1311868164.0):
     with open(os.path.join(root, "groundtruth.txt"), "w") as f:
         f.write("# timestamp tx ty tz qx qy qz qw\n" + "\n".join(lines)
                 + "\n")
+
+
+# ---------------------------------------------------------------- RPN targets
+
+# name -> anchors: "grid" (hand-placed integer boxes whose IoUs are exact)
+# or the image side of data_generator's pixel anchors
+RPN_CASES = {"no_gt": 128, "only_crowd": 128, "crowd": 512,
+             "class_zero_with_crowd": 128, "unmatched_gt": 128,
+             "column_ties": "grid", "thresholds": "grid",
+             "many_positives": "grid", "gt100": 512, "tiles": 128,
+             "random_128": 128, "random_512": 512, "random_1024": 1024,
+             "traffic_1024": 1024}
+
+
+def rpn_config(side):
+    """A square ``side``^2 training config of the port (Config's anchors;
+    at 128^2 the shapes sample's scales, 8-128)."""
+    from slam_maskrcnn_tpu_torch.models.config import Config
+
+    attrs = dict(IMAGE_MIN_DIM=side, IMAGE_MAX_DIM=side)
+    if side == 128:
+        attrs["RPN_ANCHOR_SCALES"] = (8, 16, 32, 64, 128)
+    return type(f"Rpn{side}", (Config,), attrs)()
+
+
+def rpn_anchors(side):
+    """data_generator's f32 pixel anchors of ``rpn_config(side)``: 4,092 at
+    128^2, 65,472 at 512^2, 261,888 at 1024^2."""
+    from slam_maskrcnn_tpu_torch.models.anchors import get_anchors
+
+    cfg = rpn_config(side)
+    s = np.array([side - 1] * 4, np.float32)
+    return get_anchors(cfg, cfg.IMAGE_SHAPE) * s + np.array(
+        [0, 0, 1, 1], np.float32)
+
+
+def _grid_anchors():
+    """10x10-pixel squares every 10 pixels over 100^2; then [0, 0, 10, 3],
+    [0, 0, 10, 7] and [0, 0, 10, 2]; then 300 copies of [60, 60, 80, 80]."""
+    y, x = np.meshgrid(np.arange(10) * 10, np.arange(10) * 10,
+                       indexing="ij")
+    grid = np.stack([y, x, y + 10, x + 10], -1).reshape(-1, 4)
+    extra = [[0, 0, 10, 3], [0, 0, 10, 7], [0, 0, 10, 2]]
+    dup = np.tile([[60, 60, 80, 80]], (300, 1))
+    return np.concatenate([grid, extra, dup]).astype(np.float32)
+
+
+def _random_gt(rng, n, side, lo=8, hi=None):
+    """n integer boxes inside side^2, sides lo..hi pixels."""
+    hi = hi or side // 3
+    h, w = rng.integers(lo, hi, n), rng.integers(lo, hi, n)
+    y1, x1 = rng.integers(0, side - h), rng.integers(0, side - w)
+    return np.stack([y1, x1, y1 + h, x1 + w], 1).astype(np.float32)
+
+
+def _traffic_gt(rng, n=12, side=1024):
+    """Boxes as the training cell's 480x640 frames give them molded to
+    1024^2 (scale 1.6, 128 rows of padding above): the boxes of n discs of
+    radius 10-200 pixels, cut at the frame's window; discs that leave the
+    window are dropped as the generator drops empty masks."""
+    top, bottom = 128, 128 + 768
+    cy = rng.uniform(top - 100, bottom + 100, n)
+    cx = rng.uniform(-100, side + 100, n)
+    r = rng.uniform(10, 200, n)
+    b = np.stack([np.floor(cy - r), np.floor(cx - r), np.ceil(cy + r),
+                  np.ceil(cx + r)], 1)
+    b = np.clip(b, [top, 0, top, 0], [bottom, side, bottom, side])
+    keep = (b[:, 2] > b[:, 0]) & (b[:, 3] > b[:, 1])
+    return b[keep].astype(np.float32)
+
+
+def rpn_split(gt_class_ids, gt_boxes):
+    """(the gt boxes that build_rpn_targets matches, the crowd boxes): with
+    a crowd box the gt of class > 0, else every gt."""
+    crowd = gt_boxes[gt_class_ids < 0]
+    return (gt_boxes[gt_class_ids > 0] if len(crowd) else gt_boxes), crowd
+
+
+def rpn_case(name, seed=0):
+    """One case of ``build_rpn_targets``: (anchors f32 [A, 4], gt_class_ids
+    i32 [N] (< 0 crowd), gt_boxes f32 [N, 4], config)."""
+    rng = np.random.default_rng([seed, len(name)])
+    where = RPN_CASES[name]
+    side = 100 if where == "grid" else where
+    anchors = _grid_anchors() if where == "grid" else rpn_anchors(side)
+    cfg = rpn_config(128 if where == "grid" else side)
+    ids = None
+    if name == "no_gt":
+        gt = np.zeros((0, 4), np.float32)
+    elif name == "only_crowd":
+        gt, ids = _random_gt(rng, 2, side), np.array([-1, -1])
+    elif name == "crowd":
+        # three crowd boxes, each 20 pixels around a gt: the anchors near
+        # them go neutral, not negative
+        gt = _random_gt(rng, 8, side)
+        crowd = np.concatenate([gt[:3, :2] - 20, gt[:3, 2:] + 20], 1)
+        gt = np.concatenate([gt, np.clip(crowd, 0, side)])
+        ids = np.array([1, 2, 3, 4, 1, 2, 3, 4, -1, -1, -1])
+    elif name == "class_zero_with_crowd":
+        # a crowd box drops the class-0 gt from the matching; without a
+        # crowd box it would stay
+        gt, ids = _random_gt(rng, 4, side), np.array([2, 0, -1, 1])
+    elif name == "unmatched_gt":
+        # far outside every anchor: its column max is 0, so every anchor
+        # with IoU 0 to it is positive (model.py:1499-1502), thousands of
+        # positives for the subsample
+        gt = np.array([[20, 30, 60, 90], [1000, 1000, 1010, 1010]],
+                      np.float32)
+    elif name == "column_ties":
+        # between two anchors, between four, on one, and its copy
+        gt = np.array([[0, 5, 10, 15], [45, 45, 55, 55], [20, 20, 30, 30],
+                       [20, 20, 30, 30]], np.float32)
+    elif name == "thresholds":
+        # anchors [0, 0, 10, 3] and [0, 0, 10, 7] against the gt on anchor
+        # 0: IoU 30 / 100 = 0.3f (not negative) and 70 / 100 = 0.7f
+        # (positive); [0, 0, 10, 2]: 0.2 (negative)
+        gt = np.array([[0, 0, 10, 10], [90, 90, 100, 100]], np.float32)
+    elif name == "many_positives":
+        gt = np.array([[60, 60, 80, 80], [5, 5, 25, 25]], np.float32)
+    elif name == "gt100":
+        gt = _random_gt(rng, 100, side)
+    elif name == "tiles":
+        # more boxes than the kernel stages at once (256), crowd last
+        gt = _random_gt(rng, 320, side, 4, 48)
+        ids = np.where(np.arange(320) < 300, 1, -1)
+    elif name.startswith("random"):
+        gt = _random_gt(rng, 12, side)
+        ids = rng.integers(1, 81, 12)
+        ids[:2] = -1
+    else:
+        gt = _traffic_gt(rng)
+    if ids is None:
+        ids = rng.integers(1, 81, len(gt))
+    return anchors, np.asarray(ids, np.int32), gt, cfg
+
+
+def molded_gt(masks, class_ids, config, flip=False):
+    """One frame's instances (bool masks [H, W, N], class ids [N]) as
+    data_generator hands them to build_rpn_targets: (class ids i32 [n], f32
+    boxes [n, 4]) after load_image_gt's molding to ``config``'s shape and
+    its flip (``flip``), empty masks dropped."""
+    from slam_maskrcnn_tpu_torch.data.augment import Fliplr
+    from slam_maskrcnn_tpu_torch.data.dataset import Dataset, load_image_gt
+
+    class Frame(Dataset):
+        def load_image(self, image_id):
+            return np.zeros(masks.shape[:2] + (3,), np.uint8)
+
+        def load_mask(self, image_id):
+            return masks, np.asarray(class_ids, np.int32)
+
+    ds = Frame()
+    ds.add_image("frame", 0, None)
+    ds.prepare()
+    _, ids, boxes, *_ = load_image_gt(
+        ds, config, 0, augmentation=Fliplr(1.0 if flip else 0.0),
+        rng=np.random.default_rng(0), use_mini_mask=False)
+    return np.asarray(ids, np.int32), boxes.astype(np.float32)

@@ -313,9 +313,11 @@ class Trainer:
             np.random.seed(seed % 2 ** 32)
         run = self._step_fn(lr, layers_regex, mesh)
         anchors = torch.from_numpy(get_anchors(cfg, cfg.IMAGE_SHAPE)).to(dev)
+        # one card matches each image's anchors there; the ranks of a mesh
+        # keep the numpy batch that sharding.shard_batch takes
         gen = data_generator(train_dataset, cfg, shuffle=True,
                              augment=augment, augmentation=augmentation,
-                             seed=seed)
+                             seed=seed, device=dev if mesh is None else None)
         noise = torch.Generator(device=dev).manual_seed(self.epoch)
 
         def records():

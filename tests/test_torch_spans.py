@@ -184,7 +184,7 @@ ENTRIES = {
                   "batch", "upload", "train_forward", "loss", "backward",
                   "optimizer", "sync:train.loss")},
                "sync:train.clip": "optimizer",
-               "sync:targets.const": "targets"}),
+               "sync:targets.const": "targets", "rpn_targets": "batch"}),
 }
 
 # the marks each call emits, as the benchmark's per-layer metrics read
@@ -336,7 +336,8 @@ def test_launch_counter_view():
     launches.add("nms")
     launches.add("fuse_pair")
     assert launches.counts == {"associate": 0, "fuse": 0, "fuse_pair": 1,
-                               "nms": 2, "nms_sorted": 0, "roi_align": 0}
+                               "nms": 2, "nms_sorted": 0, "roi_align": 0,
+                               "rpn_targets": 0}
     assert profiling.counters("launch.")["launch.nms"] == 2
     with pytest.raises(KeyError):
         launches.add("no_such_kernel")
